@@ -1,0 +1,713 @@
+"""Iterative image alignment — the port's main API (batch mode, one device).
+
+Counterpart of ``subpixal_tpu/align.py · align_images`` for
+``wcsupdate='batch'`` on one device: measure per-source displacements
+between each exposure and the combined (drizzled) reference, fit a
+sigma-clipped linear correction per exposure in the reference pixel
+frame, compose it into the per-exposure affine state, and repeat until
+the ``eps_shift`` test passes.
+
+* Setup runs on the host in float64: the initial drizzle's product feeds
+  the host source finder, primary cutouts fix the static cutout shape
+  (with an oversized-footprint bucket for sources that outgrow it), and
+  full-frame and per-cutout pixmaps into the reference frame are
+  evaluated once.
+* One iteration (:func:`_step`) runs on the device: re-drizzle every
+  exposure through its affine-corrected pixmap (kernel B1), blot the
+  combined image at every (exposure, source) cutout grid (kernel B2),
+  ``find_displacement`` (``torch.fft`` and small matrix DFTs), the
+  per-exposure fits, and the affine composition.
+* The fixed-point loop keeps the state and a preallocated history on the
+  device and reads back only ``max_shift`` each iteration.
+
+Branches of the JAX package that this slice does not port raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+import warnings
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from ._precision import full_f32
+from .blot import compute_pixmap
+from .catalogs import ImageCatalog, ImageSourceCatalog
+from .cutout import create_primary_cutouts
+from .kernels.blot import sample_cutouts
+from .kernels.drizzle import drizzle_deposit
+from .ops.correlate import find_displacement
+from .ops.cutouts import extract_cutouts
+from .ops.drizzle import drizzle_combine
+from .ops.fit import iter_linear_fit
+from .ops.interp import sample_image
+from .resample import (Drizzle, Exposure, _not_in_slice,
+                       exposure_pixel_weight, exposure_rate_data)
+from .wcs import apply_tangent_affine
+
+__all__ = ["align_images", "AlignConfig", "AlignResult", "ImageAlignInfo"]
+
+#: floor of the oversized-footprint bucket's shape cap (the bucket is
+#: sized min(need, max(_BIG_CAP_FLOOR, 2*max(cutout_shape))))
+_BIG_CAP_FLOOR = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """Alignment configuration: the fields and defaults of the JAX
+    package's ``AlignConfig``. ``use_pallas`` selects the TPU kernels
+    there; here CUDA tensors always take the hand-written kernels, so
+    only its default is accepted."""
+
+    cc_type: str = "NCC"
+    fitgeom: str = "general"
+    nclip: int = 3
+    sigma: float = 3.0
+    use_weights: bool = True
+    combine_seg_mask: bool = True
+    wcsupdate: str = "batch"
+    max_iterations: int = 10
+    eps_shift: float = 0.004
+    history: str = "all"
+    usfac: int = 1
+    peak_fit_box: int = 5
+    peak_search_box: int | str | tuple | None = "fitbox"
+    fit_type: str = "quadratic"
+    interp: str = "poly5"
+    cutout_shape: tuple[int, int] | None = None
+    max_cut_size: int = 128
+    pixfrac: float = 1.0
+    kernel: str = "square"
+    wht_type: str = "exptime"
+    skymethod: str = "match"
+    min_sources: int = 3
+    use_pallas: bool | str = "auto"
+    sparse_deposit: bool | str = "auto"
+    match_sky: bool = False
+    static_mask: bool = False
+    reject_cr: bool = False
+    cutout_pixmaps: str = "auto"
+    device_loop: bool | str = "auto"
+    device_catalog: str = "auto"
+    catalog_nsigma: float = 3.0
+    catalog_npixels: int = 5
+    catalog_max_sources: int = 8192
+    catalog_window: int = 32
+
+
+@dataclasses.dataclass
+class ImageAlignInfo:
+    """Per-image, per-iteration fit record."""
+
+    name: str
+    iteration: int
+    shift: tuple[float, float]
+    matrix: tuple[tuple[float, float], tuple[float, float]]
+    rms: tuple[float, float]
+    rmse: float
+    mae: float
+    nmatches: int
+    iter_s: float = 0.0  # wall time of one device iteration
+    # pixels the kernels' static tiles missed: the CUDA kernels have no
+    # tiles, so this is 0 by construction
+    escaped: int = 0
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+
+@dataclasses.dataclass
+class AlignResult:
+    """Result of :func:`align_images`: exposures with CORRECTED WCSs, the
+    cumulative per-exposure affine corrections in the reference pixel
+    frame (``p_true = M @ p_pred + t``), per-iteration history, whether
+    ``eps_shift`` was met, and setup timing."""
+
+    exposures: list[Exposure]
+    matrices: np.ndarray
+    shifts: np.ndarray
+    history: list[list[ImageAlignInfo]]
+    converged: bool
+    n_iterations: int
+    drizzle: Drizzle | None = None
+    setup_s: float = 0.0
+    setup_breakdown: dict | None = None
+    truncated_sources: list[int] = dataclasses.field(default_factory=list)
+
+
+def _check_config(cfg: AlignConfig) -> None:
+    """Reject the JAX package's branches that this slice leaves out."""
+    if cfg.wcsupdate not in ("batch", "otf"):
+        raise ValueError(f"wcsupdate must be 'batch'|'otf', "
+                         f"got {cfg.wcsupdate!r}")
+    if cfg.wcsupdate == "otf":
+        raise _not_in_slice("wcsupdate='otf'", "A12")
+    if cfg.sparse_deposit is True:
+        raise _not_in_slice("sparse_deposit=True", "A12")
+    if cfg.cutout_pixmaps not in ("auto", "device", "host"):
+        raise ValueError(f"cutout_pixmaps must be 'auto'|'device'|'host', "
+                         f"got {cfg.cutout_pixmaps!r}")
+    if cfg.cutout_pixmaps == "device":
+        raise _not_in_slice("cutout_pixmaps='device'", "A9")
+    if cfg.device_catalog not in ("auto", "device", "host"):
+        raise ValueError(f"device_catalog must be 'auto'|'device'|'host', "
+                         f"got {cfg.device_catalog!r}")
+    if cfg.device_catalog == "device":
+        raise _not_in_slice("device_catalog='device'", "A13")
+    for flag, item in (("match_sky", "A10"), ("static_mask", "A10"),
+                       ("reject_cr", "A10")):
+        if getattr(cfg, flag):
+            raise _not_in_slice(f"{flag}=True", item)
+    if cfg.device_loop is False:
+        raise _not_in_slice("device_loop=False (the host loop)", "A12")
+    if cfg.use_pallas is False:
+        raise ValueError("use_pallas=False has no counterpart in the port: "
+                         "CUDA tensors always take the CUDA kernels")
+
+
+def _affine_apply_grid(M, t, gx, gy):
+    """Apply per-entry affines (..., 2, 2), (..., 2) to coordinate grids
+    whose leading axes match M's batch axes."""
+    extra = gx.dim() - (M.dim() - 2)
+
+    def b(a):
+        return a.reshape(a.shape + (1,) * extra)
+
+    nx = b(M[..., 0, 0]) * gx + b(M[..., 0, 1]) * gy + b(t[..., 0])
+    ny = b(M[..., 1, 0]) * gx + b(M[..., 1, 1]) * gy + b(t[..., 1])
+    return nx, ny
+
+
+def _affine_apply_pts(M, t, pts):
+    """(E,2,2), (E,2), (E,N,2) -> (E,N,2)."""
+    return torch.einsum("eij,enj->eni", M, pts) + t[:, None, :]
+
+
+def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
+                  src_cat, seg_ok, cut_shape, use_seg):
+    """Static per-exposure loop inputs: the image cutouts (rate units)
+    with their in-image masks, and each source's segmentation mask
+    sampled (nearest) from its catalog's plane at the cutout pixmaps.
+    Without segmentation there is no mask (all ones)."""
+    cbs = [extract_cutouts(exp_data[e], centers[e], cut_shape)
+           for e in range(exp_data.shape[0])]
+    data = torch.stack([c.data for c in cbs])
+    mask = torch.stack([c.mask for c in cbs])
+    if not use_seg:
+        return data, mask, torch.ones_like(data)
+
+    def samp(plane):
+        return sample_image(plane, cut_px, cut_py, interp="nearest")[0]
+
+    sseg = samp(seg_f[0])
+    for ci in range(1, seg_f.shape[0]):
+        sseg = torch.where(src_cat[None, :, None, None] == ci,
+                           samp(seg_f[ci]), sseg)
+    seg_cut = ((sseg - src_ids[None, :, None, None]).abs() < 0.5).to(
+        torch.float32)
+    return data, mask, torch.maximum(
+        seg_cut, (~seg_ok)[None, :, None, None].to(torch.float32))
+
+
+@dataclasses.dataclass
+class _LoopArgs:
+    """Device-resident inputs of one iteration (E exposures, N sources)."""
+
+    exp_data: torch.Tensor   # (E, H, W) rate data
+    exp_wht: torch.Tensor    # (E, H, W) deposit weights
+    dri_px: torch.Tensor     # (E, H, W) full-frame pixmaps
+    dri_py: torch.Tensor
+    cut_px: torch.Tensor     # (E, N, h, w) cutout pixmaps
+    cut_py: torch.Tensor
+    img_cut: torch.Tensor    # (E, N, h, w) image cutouts
+    img_msk: torch.Tensor
+    seg_cut: torch.Tensor
+    jac: torch.Tensor        # (E, N, 2, 2) exposure->ref Jacobians
+    xy0: torch.Tensor        # (E, N, 2) catalog positions
+    src_w: torch.Tensor      # (E, N) flux weights
+    src_valid: torch.Tensor  # (E, N) bool
+    big: tuple | None = None  # oversized bucket: (cpx, cpy, img, msk,
+    #                           seg, idx, valid)
+
+
+def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
+          a: _LoopArgs, Ms: torch.Tensor, ts: torch.Tensor):
+    """One iteration: re-drizzle, blot, measure, fit, compose.
+
+    Returns ``(newM, newt, info)``; ``info`` holds the per-exposure fit
+    (G_M, G_t, rms, rmse, mae, nmatches), ``max_shift`` (the eps_shift
+    metric) and the kernels' ``escaped`` counts."""
+    E, N = a.cut_px.shape[:2]
+
+    # ---- 1. re-drizzle every exposure with its current correction ----
+    sci = wht = None
+    esc = []
+    for e in range(E):
+        px, py = _affine_apply_grid(Ms[e], ts[e], a.dri_px[e], a.dri_py[e])
+        s, w, es = drizzle_deposit(a.exp_data[e], a.exp_wht[e], px, py,
+                                   out_shape, pixfrac=cfg.pixfrac,
+                                   pscale_ratio=dri_ratios[e],
+                                   kernel=cfg.kernel)
+        sci = s if sci is None else sci + s
+        wht = w if wht is None else wht + w
+        esc.append(es)
+    drz = drizzle_combine(sci, wht)
+    escaped = torch.stack(esc)
+
+    def measure_set(Mi, ti, cpx, cpy, img, mk0, seg, hw, slot_valid=None):
+        """Displacements of one cutout set (k, n, hh, ww) vs ``drz``."""
+        k, n = cpx.shape[:2]
+        hh, ww = hw
+        bpx, bpy = _affine_apply_grid(Mi, ti, cpx, cpy)
+        vals, ok, besc = sample_cutouts(drz, bpx.reshape(k * n, hh, ww),
+                                        bpy.reshape(k * n, hh, ww),
+                                        interp=cfg.interp)
+        blotted = vals.reshape(k, n, hh, ww)
+        esc_pn = besc.reshape(k, n)
+        if slot_valid is not None:
+            esc_pn = esc_pn * slot_valid.to(esc_pn.dtype)
+        msk = (mk0 & ok.reshape(k, n, hh, ww)).reshape(k * n, hh, ww)
+        if cfg.combine_seg_mask:
+            img = img * seg
+            blotted = blotted * seg
+        d = find_displacement(
+            blotted.reshape(k * n, hh, ww), img.reshape(k * n, hh, ww),
+            cc_type=cfg.cc_type, usfac=cfg.usfac,
+            peak_fit_box=cfg.peak_fit_box, fit_type=cfg.fit_type,
+            ref_mask=msk, img_mask=msk, peak_search_box=cfg.peak_search_box)
+        dxy = torch.stack([d.dx, d.dy], dim=-1).reshape(k, n, 2)
+        return (dxy, d.fit_ok.reshape(k, n), d.peak.reshape(k, n),
+                esc_pn.sum(1, dtype=torch.int32))
+
+    # ---- 2-3. blot + measure every (exposure, source) cutout ----
+    dxy, meas_ok, peak, blot_esc = measure_set(
+        Ms, ts, a.cut_px, a.cut_py, a.img_cut, a.img_msk, a.seg_cut,
+        cut_shape)
+    escaped = escaped + blot_esc
+    if big_shape is not None:
+        # oversized-footprint bucket: sources whose footprint exceeds the
+        # base cutout are re-measured whole at a second static shape and
+        # override their base rows through a one-hot product (an
+        # index_put_ with padded duplicate indices has no defined order)
+        cpx, cpy, bimg, bmsk, bseg, bidx, bval = a.big
+        dxyB, okB, pkB, escB = measure_set(Ms, ts, cpx, cpy, bimg, bmsk,
+                                           bseg, big_shape, slot_valid=bval)
+        escaped = escaped + escB
+        sel = ((bidx[:, None] == torch.arange(N, device=bidx.device)[None])
+               & bval[:, None])                               # (NB, N)
+        selF = sel.to(torch.float32)
+        anyb = sel.any(dim=0)                                 # (N,)
+        dxy = torch.where(anyb[None, :, None],
+                          torch.einsum("bn,ebk->enk", selF, dxyB), dxy)
+        meas_ok = torch.where(
+            anyb[None, :],
+            torch.einsum("bn,eb->en", selF, okB.to(torch.float32)) > 0.5,
+            meas_ok)
+        peak = torch.where(anyb[None, :],
+                           torch.einsum("bn,eb->en", selF, pkB), peak)
+
+    # ---- 4. per-exposure sigma-clipped fit in the reference frame ----
+    # displacement in ref-frame px: duv = (M_e @ J_{e,n}) @ d_{e,n}; the
+    # fit G maps the measured positions xy0 + duv back onto xy0, so the
+    # true fixed point d = 0 gives G = I
+    MJ = torch.einsum("eij,enjk->enik", Ms, a.jac)
+    duv = torch.einsum("enik,enk->eni", MJ, dxy)
+    uv = a.xy0 + duv
+    wgt = (a.src_valid & meas_ok & (peak > 0)).to(torch.float32)
+    if cfg.use_weights:
+        wgt = wgt * a.src_w
+    fit = iter_linear_fit(uv, a.xy0, wgt, fitgeom=cfg.fitgeom,
+                          nclip=cfg.nclip, sigma=cfg.sigma)
+    G_M, G_t = fit.matrix, fit.shift
+    newM = torch.einsum("eij,ejk->eik", G_M, Ms)
+    newt = torch.einsum("eij,ej->ei", G_M, ts) + G_t
+
+    # ---- 5. eps_shift metric: rms incremental source motion, with the
+    # common-mode motion of a multi-exposure stack projected out ----
+    moved = _affine_apply_pts(G_M, G_t, uv) - uv
+    if E > 1:
+        wsum_all = torch.clamp(wgt.sum(), min=1e-12)
+        moved = moved - ((wgt[..., None] * moved).sum(dim=(0, 1),
+                                                      keepdim=True)
+                         / wsum_all)
+    move2 = (moved * moved).sum(-1)
+    wsum = torch.clamp(wgt.sum(1), min=1e-12)
+    rms_move = torch.sqrt((wgt * move2).sum(1) / wsum)
+    info = dict(G_M=G_M, G_t=G_t, rms=fit.rms, rmse=fit.rmse, mae=fit.mae,
+                nmatches=fit.nmatches, max_shift=rms_move.max(),
+                escaped=escaped)
+    return newM, newt, info
+
+
+@full_f32()
+def align_images(
+    catalogs: ImageCatalog | Sequence[ImageCatalog] | None = None,
+    resample: Drizzle | None = None,
+    *,
+    exposures: Sequence[Exposure] | None = None,
+    cc_type: str = "NCC",
+    fitgeom: str = "general",
+    nclip: int = 3,
+    sigma: float = 3.0,
+    use_weights: bool = True,
+    combine_seg_mask: bool = True,
+    wcsupdate: str = "batch",
+    max_iterations: int = 10,
+    eps_shift: float = 0.004,
+    history: str = "all",
+    config: AlignConfig | None = None,
+    verbose: bool = False,
+    mesh=None,
+    device="cuda",
+    **kw: Any,
+) -> AlignResult:
+    """Iteratively align exposures to their combined reference image.
+
+    Parameters mirror the JAX package's ``align_images``. ``resample`` is
+    a :class:`~subpixal_tpu_torch.resample.Drizzle` holding the
+    exposures, or pass ``exposures=`` and one is built on ``device``.
+    ``catalogs`` may be an :class:`ImageCatalog` (or a list of them) for
+    the reference image; ``None`` runs the host source finder on the
+    first drizzle product. ``device`` ('cuda' by default) runs the loop;
+    a given ``resample`` must live on the same device. Input exposures
+    are not mutated: corrected copies are returned.
+    """
+    if config is None:
+        config = AlignConfig(
+            cc_type=cc_type, fitgeom=fitgeom, nclip=nclip, sigma=sigma,
+            use_weights=use_weights, combine_seg_mask=combine_seg_mask,
+            wcsupdate=wcsupdate, max_iterations=max_iterations,
+            eps_shift=eps_shift, history=history, **kw)
+    cfg = config
+    if mesh is not None:
+        raise _not_in_slice("align_images(mesh=...)", "A15")
+    if verbose:
+        raise _not_in_slice("verbose per-iteration printing (the host "
+                            "loop)", "A12")
+    _check_config(cfg)
+    dev = torch.device(device)
+
+    if resample is None:
+        if exposures is None:
+            raise ValueError("provide `resample` (Drizzle) or `exposures`")
+        resample = Drizzle(list(exposures), pixfrac=cfg.pixfrac,
+                           kernel=cfg.kernel, wht_type=cfg.wht_type,
+                           device=dev)
+    elif resample.device != dev:
+        raise ValueError(f"resample lives on {resample.device}, but "
+                         f"device={dev}")
+    exps = list(resample.exposures)
+    if not exps:
+        raise ValueError("no exposures to align")
+
+    setup_breakdown: dict[str, float] = {}
+
+    def _mark(name, t0):
+        setup_breakdown[name] = setup_breakdown.get(name, 0.0) + (
+            time.time() - t0)
+        return time.time()
+
+    t_setup = time.time()
+    t = t_setup
+    # -- initial reference image and its catalog(s) --------------------- #
+    resample.execute()
+    ref_wcs = resample.output_wcs
+    out_shape = resample.output_shape
+    drz_sci = resample.output_sci
+    t = _mark("resample_execute", t)
+
+    if catalogs is None:
+        cat_list = [ImageSourceCatalog(drz_sci, nsigma=cfg.catalog_nsigma,
+                                       npixels=cfg.catalog_npixels)]
+    elif isinstance(catalogs, (list, tuple)):
+        cat_list = list(catalogs)
+    else:
+        cat_list = [catalogs]
+    if not cat_list:
+        raise ValueError("catalogs must not be an empty sequence")
+    cats = [c.catalog for c in cat_list]
+    seg_planes = [c.segmentation for c in cat_list]
+    t = _mark("catalog", t)
+    have_seg = any(s is not None for s in seg_planes)
+    n_tot = sum(len(c) for c in cats)
+    if n_tot < cfg.min_sources:
+        raise ValueError(
+            f"only {n_tot} sources found (need >= {cfg.min_sources})")
+
+    prim = []
+    src_cat_l: list[int] = []
+    for ci, (cat, seg_i) in enumerate(zip(cats, seg_planes)):
+        p_i = create_primary_cutouts(
+            cat, seg_i if seg_i is not None
+            else np.zeros(out_shape, np.int32),
+            drz_sci, ref_wcs, combine_seg_mask=False)
+        prim.extend(p_i)
+        src_cat_l.extend([ci] * len(p_i))
+    if len(prim) < cfg.min_sources:
+        raise ValueError("too few usable primary cutouts")
+    t = _mark("primary_cutouts", t)
+
+    # -- static cutout shape, and the oversized-footprint bucket -------- #
+    if cfg.cutout_shape is None:
+        mh = max(c.data.shape[0] for c in prim)
+        mw = max(c.data.shape[1] for c in prim)
+        # bucketed to 16 so similar scenes share one geometry
+        s = int(np.ceil(max(mh + 4, mw + 4, 16) / 16) * 16)
+        cut_shape = (min(s, cfg.max_cut_size), min(s, cfg.max_cut_size))
+    else:
+        cut_shape = tuple(cfg.cutout_shape)
+    h, w = cut_shape
+    # sources whose footprint exceeds the static shape are re-measured
+    # whole in a second static-shape bucket; only a footprint beyond the
+    # bucket cap still crops (recorded in truncated_sources and warned)
+    over_i = [i for i, c in enumerate(prim)
+              if c.data.shape[0] > h or c.data.shape[1] > w]
+    big_hw = None
+    big_src_i: list[int] = []
+    if over_i:
+        cap = max(_BIG_CAP_FLOOR, 2 * max(h, w))
+        need = max(max(prim[i].data.shape) for i in over_i) + 4
+        sB = int(np.ceil(min(need, cap) / 16) * 16)
+        big_src_i = [i for i in over_i if max(prim[i].data.shape) + 4 <= sB]
+        if big_src_i:
+            big_hw = (sB, sB)
+    in_bucket = set(big_src_i)
+    truncated = [prim[i].src_id for i in over_i if i not in in_bucket]
+    if truncated:
+        warnings.warn(
+            f"{len(truncated)} source footprint(s) exceed the static "
+            f"cutout shape {cut_shape} and are measured on centered "
+            f"crops (src ids: {truncated[:10]}"
+            f"{'...' if len(truncated) > 10 else ''}); pass a larger "
+            "cutout_shape / max_cut_size to use the full footprints",
+            stacklevel=2)
+    N = len(prim)
+    E = len(exps)
+
+    xy_cat = np.array([c.src_pos_parent for c in prim], np.float64)
+    src_ids = np.array([c.src_id for c in prim], np.int64)
+    src_cat = np.array(src_cat_l, np.int64)
+    seg_ok = np.array([seg_planes[ci] is not None for ci in src_cat_l],
+                      bool)
+    flux_w = np.array([c.src_weight for c in prim], np.float64)
+    flux_w = flux_w / max(flux_w.max(), 1e-12)
+
+    # catalog axis padded to a multiple of 64 as in the JAX package (its
+    # compiled programs are sized per catalog size); pads sit at the
+    # frame center with zero weight and are invalid
+    n_real = N
+    N_pad = max(-(-N // 64) * 64, 64)
+    if N_pad != N:
+        cyc, cxc = out_shape[0] / 2.0, out_shape[1] / 2.0
+        xy_cat = np.concatenate(
+            [xy_cat, np.tile([[cxc, cyc]], (N_pad - N, 1))])
+        src_ids = np.concatenate([src_ids, np.full(N_pad - N, -1, np.int64)])
+        src_cat = np.concatenate([src_cat, np.zeros(N_pad - N, np.int64)])
+        seg_ok = np.concatenate([seg_ok, np.ones(N_pad - N, bool)])
+        flux_w = np.concatenate([flux_w, np.zeros(N_pad - N)])
+        N = N_pad
+    real_src = np.arange(N) < n_real
+
+    # -- per-exposure static inputs (host float64 geometry) ------------- #
+    centers = np.zeros((E, N, 2), np.float32)
+    blc_all = np.zeros((E, N, 2), np.float32)
+    cut_px = np.zeros((E, N, h, w), np.float32)
+    cut_py = np.zeros((E, N, h, w), np.float32)
+    jac = np.zeros((E, N, 2, 2), np.float32)
+    xy0 = np.zeros((E, N, 2), np.float32)
+    src_valid = np.zeros((E, N), bool)
+    exp_data = np.zeros((E,) + exps[0].data.shape, np.float32)
+    wht_scalars = np.ones(E, np.float32)
+    wht_planes: list = [None] * E
+    dri_maps: list = []
+    ra_cat, dec_cat = ref_wcs.pixel_to_world(xy_cat[:, 0], xy_cat[:, 1])
+    seg_f = np.stack([np.zeros(out_shape, np.float32) if s is None
+                      else np.asarray(s, np.float32) for s in seg_planes])
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    for e, exp in enumerate(exps):
+        if exp.data.shape != exps[0].data.shape:
+            raise ValueError("all exposures must share one shape "
+                             "(pad on ingest)")
+        exp_data[e] = exposure_rate_data(exp)
+        base_w, mask_w = exposure_pixel_weight(exp, resample.wht_type)
+        if (np.isscalar(base_w) or np.ndim(base_w) == 0) and mask_w is None:
+            wht_scalars[e] = float(base_w)
+        else:
+            wht_planes[e] = base_w if mask_w is None else base_w * mask_w
+        H, W = exp.data.shape
+        t = time.time()
+        dri_maps.append(compute_pixmap(exp.wcs, ref_wcs, (H, W)))
+        t = _mark("frame_pixmaps", t)
+        # predicted source positions in this exposure
+        sx, sy = exp.wcs.world_to_pixel(ra_cat, dec_cat)
+        inside = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < H)
+        src_valid[e] = inside & real_src
+        # cutout windows, fixed for all iterations: the same origin
+        # formula as extract_cutouts, floor(f32(c) + 0.5)
+        bx = np.floor(sx.astype(np.float32) + 0.5).astype(int) - w // 2
+        by = np.floor(sy.astype(np.float32) + 0.5).astype(int) - h // 2
+        blc_all[e] = np.stack([bx, by], 1)
+        # per-cutout pixmaps into the ref frame + Jacobians (one batched
+        # (N, h, w) float64 WCS evaluation per exposure)
+        ra, dec = exp.wcs.pixel_to_world(xx[None] + bx[:, None, None],
+                                         yy[None] + by[:, None, None])
+        rx, ry = ref_wcs.world_to_pixel(ra, dec)
+        cut_px[e] = rx
+        cut_py[e] = ry
+        cy, cx2 = h // 2, w // 2
+        jac[e, :, 0, 0] = (rx[:, cy, cx2 + 1] - rx[:, cy, cx2 - 1]) / 2.0
+        jac[e, :, 0, 1] = (rx[:, cy + 1, cx2] - rx[:, cy - 1, cx2]) / 2.0
+        jac[e, :, 1, 0] = (ry[:, cy, cx2 + 1] - ry[:, cy, cx2 - 1]) / 2.0
+        jac[e, :, 1, 1] = (ry[:, cy + 1, cx2] - ry[:, cy - 1, cx2]) / 2.0
+        t = _mark("cutout_pixmaps", t)
+        # initial predictions in the ref frame = catalog positions
+        xy0[e] = xy_cat.astype(np.float32)
+        centers[e] = np.stack([sx, sy], 1)
+
+    def to_dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    exp_data_t = to_dev(exp_data)
+    if all(wp is None for wp in wht_planes):
+        exp_wht_t = (torch.ones_like(exp_data_t)
+                     * to_dev(wht_scalars)[:, None, None])
+    else:
+        exp_wht_t = to_dev(np.stack([
+            np.full(exps[0].data.shape, wht_scalars[e], np.float32)
+            if wp is None else np.asarray(wp, np.float32)
+            for e, wp in enumerate(wht_planes)]))
+    cut_px_t, cut_py_t = to_dev(cut_px), to_dev(cut_py)
+    seg_f_t = to_dev(seg_f)
+    src_ids_t = to_dev(src_ids)
+    src_cat_t = to_dev(src_cat, torch.int32)
+    seg_ok_t = to_dev(seg_ok, torch.bool)
+    img_cut, img_msk, seg_cut = _stage_inputs(
+        exp_data_t, to_dev(centers), seg_f_t, cut_px_t, cut_py_t,
+        src_ids_t, src_cat_t, seg_ok_t, cut_shape, have_seg)
+    t = _mark("device_stage", t)
+
+    big = None
+    if big_hw is not None:
+        hB, wB = big_hw
+        bidx = np.asarray(big_src_i, np.int64)
+        NB = len(bidx)
+        NBp = max(-(-NB // 8) * 8, 8)
+
+        def padB(a, fill):
+            pad = [(0, 0), (0, NBp - NB)] + [(0, 0)] * (a.ndim - 2)
+            return np.pad(a, pad, constant_values=fill)
+
+        centersB = padB(centers[:, bidx], 0.0)
+        off = np.array([w // 2 - wB // 2, h // 2 - hB // 2], np.float32)
+        blcB = padB(blc_all[:, bidx] + off[None, None], 0.0)
+        src_idsB = np.concatenate([src_ids[bidx],
+                                   np.full(NBp - NB, -1, np.int64)])
+        src_catB = np.concatenate([src_cat[bidx],
+                                   np.zeros(NBp - NB, np.int64)])
+        seg_okB = np.concatenate([seg_ok[bidx], np.ones(NBp - NB, bool)])
+        # the bucket's cutout pixmaps, host float64 like the base set's
+        # (the Jacobians are shape-independent: the base set's serve)
+        yB, xB = np.mgrid[0:hB, 0:wB].astype(np.float64)
+        cpxB = np.zeros((E, NBp, hB, wB), np.float32)
+        cpyB = np.zeros((E, NBp, hB, wB), np.float32)
+        for e, exp in enumerate(exps):
+            ra, dec = exp.wcs.pixel_to_world(
+                xB[None] + blcB[e, :, 0, None, None].astype(np.float64),
+                yB[None] + blcB[e, :, 1, None, None].astype(np.float64))
+            cpxB[e], cpyB[e] = ref_wcs.world_to_pixel(ra, dec)
+        cpxB_t, cpyB_t = to_dev(cpxB), to_dev(cpyB)
+        bimg, bmsk, bseg = _stage_inputs(
+            exp_data_t, to_dev(centersB), seg_f_t, cpxB_t, cpyB_t,
+            to_dev(src_idsB), to_dev(src_catB, torch.int32),
+            to_dev(seg_okB, torch.bool), big_hw, have_seg)
+        bidx_pad = np.concatenate([bidx, np.zeros(NBp - NB, np.int64)])
+        big = (cpxB_t, cpyB_t, bimg, bmsk, bseg,
+               to_dev(bidx_pad, torch.int64),
+               to_dev(np.arange(NBp) < NB, torch.bool))
+        t = _mark("big_bucket_stage", t)
+
+    # per-exposure input/output pixel-scale ratios (deposit window sizes)
+    dri_ratios = tuple(round(float(exp.wcs.pscale / ref_wcs.pscale), 6)
+                       for exp in exps)
+    args = _LoopArgs(
+        exp_data=exp_data_t, exp_wht=exp_wht_t,
+        dri_px=to_dev(np.stack([p for p, _ in dri_maps])),
+        dri_py=to_dev(np.stack([q for _, q in dri_maps])),
+        cut_px=cut_px_t, cut_py=cut_py_t, img_cut=img_cut, img_msk=img_msk,
+        seg_cut=seg_cut, jac=to_dev(jac), xy0=to_dev(xy0),
+        src_w=to_dev(np.repeat(flux_w[None], E, 0)),
+        src_valid=to_dev(src_valid, torch.bool), big=big)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)  # staging is charged to setup
+    t = _mark("stage_args", t)
+    setup_s = time.time() - t_setup
+
+    # ------------------------------------------------------------------ #
+    # fixed-point iteration: state and history stay on the device; only
+    # max_shift is read back each iteration
+    # ------------------------------------------------------------------ #
+    T = int(cfg.max_iterations)
+    Ms = torch.eye(2, dtype=torch.float32, device=dev).repeat(E, 1, 1)
+    ts = torch.zeros((E, 2), dtype=torch.float32, device=dev)
+    z = dict(device=dev)
+    hist_d = dict(
+        G_M=torch.zeros((T, E, 2, 2), **z), G_t=torch.zeros((T, E, 2), **z),
+        rms=torch.zeros((T, E, 2), **z), rmse=torch.zeros((T, E), **z),
+        mae=torch.zeros((T, E), **z),
+        nmatches=torch.zeros((T, E), dtype=torch.int32, **z),
+        escaped=torch.zeros((T, E), dtype=torch.int32, **z))
+    eps = np.float32(cfg.eps_shift)
+    n_iter = 0
+    converged = False
+    t_it = time.time()
+    for it in range(T):
+        Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios, big_hw,
+                             args, Ms, ts)
+        for k, buf in hist_d.items():
+            buf[it] = info[k]
+        n_iter += 1
+        if info["max_shift"].item() < eps:
+            converged = True
+            break
+    iter_s = (time.time() - t_it) / max(n_iter, 1)
+    h_np = {k: v[:n_iter].cpu().numpy() for k, v in hist_d.items()}
+
+    hist: list[list[ImageAlignInfo]] = []
+    for it in range(n_iter):
+        recs = [ImageAlignInfo(
+            name=exps[e].name, iteration=it,
+            shift=tuple(map(float, h_np["G_t"][it, e])),
+            matrix=tuple(tuple(map(float, row))
+                         for row in h_np["G_M"][it, e]),
+            rms=tuple(map(float, h_np["rms"][it, e])),
+            rmse=float(h_np["rmse"][it, e]), mae=float(h_np["mae"][it, e]),
+            nmatches=int(h_np["nmatches"][it, e]), iter_s=iter_s,
+            escaped=int(h_np["escaped"][it, e])) for e in range(E)]
+        if cfg.history == "all" or not hist:
+            hist.append(recs)
+        else:
+            hist[-1] = recs
+
+    # ------------------------------------------------------------------ #
+    # write the corrections back into the WCSs (host)
+    # ------------------------------------------------------------------ #
+    Ms_np = Ms.cpu().numpy().astype(np.float64)
+    ts_np = ts.cpu().numpy().astype(np.float64)
+    out_exps = [Exposure(exp.data, apply_tangent_affine(
+                    exp.wcs, ref_wcs, Ms_np[e], ts_np[e]),
+                    weight=exp.weight, exptime=exp.exptime, name=exp.name,
+                    data_units=exp.data_units, err=exp.err, ivm=exp.ivm)
+                for e, exp in enumerate(exps)]
+    final = Drizzle(out_exps, output_wcs=ref_wcs, output_shape=out_shape,
+                    pixfrac=cfg.pixfrac, kernel=cfg.kernel,
+                    wht_type=resample.wht_type, device=dev)
+    return AlignResult(
+        exposures=out_exps, matrices=Ms_np, shifts=ts_np, history=hist,
+        converged=converged, n_iterations=n_iter, drizzle=final,
+        setup_s=setup_s, setup_breakdown=setup_breakdown,
+        truncated_sources=truncated)
