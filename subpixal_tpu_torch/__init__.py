@@ -10,7 +10,8 @@ and ``scipy``, and never ``jax`` or ``subpixal_tpu``.
 Module map (JAX package -> here):
   align                  -> align         (align_images, batch mode)
   ops/*                  -> ops/*         (plain PyTorch)
-  kernels/drizzle, blot  -> kernels/*     (hand-written CUDA, csrc/*.cu)
+  kernels/drizzle, blot,
+  measure                -> kernels/*     (hand-written CUDA, csrc/*.cu)
   resample, blot, cutout -> resample, blot, cutout
   catalogs, wcs/wcs      -> catalogs, wcs (host numpy, carried over)
 """
@@ -19,7 +20,8 @@ from .align import AlignConfig, AlignResult, ImageAlignInfo, align_images
 from .catalogs import ImageCatalog, ImageSourceCatalog, Table, find_sources
 from .convert import exposures_from_reference
 from .cutout import Cutout, create_primary_cutouts
-from .ops.correlate import Displacement, cross_correlate, find_displacement
+from .kernels.measure import find_displacement
+from .ops.correlate import Displacement, cross_correlate
 from .ops.fit import LinearFitResult, apply_affine, iter_linear_fit
 from .ops.peaks import PeakFitResult, find_peak
 from .resample import Drizzle, Exposure, make_output_wcs

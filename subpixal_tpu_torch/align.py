@@ -7,16 +7,23 @@ sigma-clipped linear correction per exposure in the reference pixel
 frame, compose it into the per-exposure affine state, and repeat until
 the ``eps_shift`` test passes.
 
-* Setup runs on the host in float64: the initial drizzle's product feeds
-  the host source finder, primary cutouts fix the static cutout shape
-  (with an oversized-footprint bucket for sources that outgrow it), and
-  full-frame and per-cutout pixmaps into the reference frame are
-  evaluated once.
+* Setup: the initial drizzle's product feeds the host source finder,
+  primary cutouts fix the static cutout shape (with an oversized-footprint
+  bucket for sources that outgrow it), and full-frame and per-cutout
+  pixmaps into the reference frame are evaluated once — in float32 on
+  the device on CUDA (``cutout_pixmaps='auto'``; frames from
+  ``device_pixmap_min_pixels``), else in host float64. Jacobians are
+  host float64 either way.
+* The sparse deposit (``sparse_deposit='auto'`` on CUDA): input blocks
+  whose deposits cannot reach any cutout's blot window are compacted
+  away once at setup, and the live set self-heals when the applied
+  corrections outgrow its margin.
 * One iteration (:func:`_step`) runs on the device: re-drizzle every
   exposure through its affine-corrected pixmap (kernel B1), blot the
   combined image at every (exposure, source) cutout grid (kernel B2),
-  ``find_displacement`` (``torch.fft`` and small matrix DFTs), the
-  per-exposure fits, and the affine composition.
+  ``find_displacement`` (kernel B3 for ``usfac > 1`` under a small search
+  box; ``torch.fft`` otherwise), the per-exposure fits, and the affine
+  composition.
 * The fixed-point loop keeps the state and a preallocated history on the
   device and reads back only ``max_shift`` each iteration.
 
@@ -36,14 +43,16 @@ import numpy as np
 import torch
 
 from ._precision import full_f32
-from .blot import compute_pixmap
+from .blot import (compute_cutout_pixmaps_device_stack, compute_pixmap,
+                   compute_pixmap_device_stack, device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .cutout import create_primary_cutouts
 from .kernels.blot import sample_cutouts
 from .kernels.drizzle import drizzle_deposit
+from .kernels.measure import measure_window
 from .ops.correlate import find_displacement
 from .ops.cutouts import extract_cutouts
-from .ops.drizzle import drizzle_combine
+from .ops.drizzle import drizzle_combine, kernel_reach
 from .ops.fit import iter_linear_fit
 from .ops.interp import sample_image
 from .resample import (Drizzle, Exposure, _not_in_slice,
@@ -55,6 +64,11 @@ __all__ = ["align_images", "AlignConfig", "AlignResult", "ImageAlignInfo"]
 #: floor of the oversized-footprint bucket's shape cap (the bucket is
 #: sized min(need, max(_BIG_CAP_FLOOR, 2*max(cutout_shape))))
 _BIG_CAP_FLOOR = 256
+
+#: the input block of the sparse deposit's live set and compaction (the
+#: JAX package's ``kernels/_common.py · DEPOSIT_BLOCK``), so both packages
+#: keep the same blocks
+DEPOSIT_BLOCK = (16, 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,13 +161,12 @@ def _check_config(cfg: AlignConfig) -> None:
                          f"got {cfg.wcsupdate!r}")
     if cfg.wcsupdate == "otf":
         raise _not_in_slice("wcsupdate='otf'", "A12")
-    if cfg.sparse_deposit is True:
-        raise _not_in_slice("sparse_deposit=True", "A12")
+    if cfg.sparse_deposit not in (True, False, "auto"):
+        raise ValueError(f"sparse_deposit must be True|False|'auto', "
+                         f"got {cfg.sparse_deposit!r}")
     if cfg.cutout_pixmaps not in ("auto", "device", "host"):
         raise ValueError(f"cutout_pixmaps must be 'auto'|'device'|'host', "
                          f"got {cfg.cutout_pixmaps!r}")
-    if cfg.cutout_pixmaps == "device":
-        raise _not_in_slice("cutout_pixmaps='device'", "A9")
     if cfg.device_catalog not in ("auto", "device", "host"):
         raise ValueError(f"device_catalog must be 'auto'|'device'|'host', "
                          f"got {cfg.device_catalog!r}")
@@ -188,6 +201,134 @@ def _affine_apply_pts(M, t, pts):
     return torch.einsum("eij,enj->eni", M, pts) + t[:, None, :]
 
 
+# --------------------------------------------------------------------- #
+# sparse deposit: live input blocks and their compaction
+# --------------------------------------------------------------------- #
+
+def _block_partition(a, block=DEPOSIT_BLOCK, edge: bool = False):
+    """``(E, H, W) -> (E, nb, bh, bw)``: the deposit's input blocks,
+    row-major over (by, bx), padded to whole blocks with zeros (or the
+    edge values, for coordinate planes)."""
+    E, H, W = a.shape
+    bh, bw = block
+    Hp, Wp = -(-H // bh) * bh, -(-W // bw) * bw
+    if (Hp, Wp) != (H, W):
+        if edge:
+            rows = torch.clamp(torch.arange(Hp, device=a.device), max=H - 1)
+            cols = torch.clamp(torch.arange(Wp, device=a.device), max=W - 1)
+            a = a[:, rows][:, :, cols]
+        else:
+            a = torch.nn.functional.pad(a, (0, Wp - W, 0, Hp - H))
+    return (a.reshape(E, Hp // bh, bh, Wp // bw, bw)
+            .permute(0, 1, 3, 2, 4).reshape(E, -1, bh, bw))
+
+
+def _block_bboxes_wcs(wcs_list, to_wcs, shape, block=DEPOSIT_BLOCK,
+                      pad: float = 1.0):
+    """Per-input-block output bboxes from the WCS composition evaluated at
+    the block CORNERS (host float64), padded by ``pad`` px for
+    within-block curvature; row-major (by, bx) block order as
+    :func:`_block_partition`. Returns (y0, y1, x0, x1), each (E, nb)."""
+    H, W = shape
+    bh, bw = block
+    nby, nbx = -(-H // bh), -(-W // bw)
+    y0s = np.minimum(np.arange(nby) * bh, H - 1).astype(np.float64)
+    y1s = np.minimum((np.arange(nby) + 1) * bh - 1, H - 1).astype(
+        np.float64)
+    x0s = np.minimum(np.arange(nbx) * bw, W - 1).astype(np.float64)
+    x1s = np.minimum((np.arange(nbx) + 1) * bw - 1, W - 1).astype(
+        np.float64)
+    ye = np.stack([y0s, y1s])  # (2, nby)
+    xe = np.stack([x0s, x1s])  # (2, nbx)
+    gy = np.broadcast_to(ye[:, :, None, None], (2, nby, 2, nbx))
+    gx = np.broadcast_to(xe[None, None, :, :], (2, nby, 2, nbx))
+    outs = []
+    for wcs in wcs_list:
+        ra, dec = wcs.pixel_to_world(gx, gy)
+        rx, ry = to_wcs.world_to_pixel(ra, dec)
+        rx = np.asarray(rx)
+        ry = np.asarray(ry)
+        outs.append(((ry.min(axis=(0, 2)) - pad).reshape(-1),
+                     (ry.max(axis=(0, 2)) + pad).reshape(-1),
+                     (rx.min(axis=(0, 2)) - pad).reshape(-1),
+                     (rx.max(axis=(0, 2)) + pad).reshape(-1)))
+    return tuple(np.stack([o[k] for o in outs]) for k in range(4))
+
+
+def _compact_blocks(data, wht, px, py, idx, valid, block=DEPOSIT_BLOCK):
+    """Gather input blocks ``idx`` (E, L) into (E, L·bh, bw)
+    pseudo-images. Padded entries (``valid`` False) keep a live block's
+    pixmap but get weight 0, so they deposit nothing. The deposit is
+    position-based, so it takes the pseudo-images as they are."""
+    E = data.shape[0]
+    bh, bw = block
+    L = idx.shape[1]
+    rows = torch.arange(E, device=idx.device)[:, None]
+
+    def take(a, edge=False):
+        return _block_partition(a, block, edge)[rows, idx].reshape(
+            E, L * bh, bw)
+
+    cw = take(wht) * valid.to(wht.dtype).repeat_interleave(bh, 1)[:, :, None]
+    return take(data), cw, take(px, edge=True), take(py, edge=True)
+
+
+def _live_block_indices(bboxes, cut_bb, out_shape, blot_margin: float,
+                        corr_margin: float):
+    """Input blocks whose deposits can reach any cutout's blot window.
+
+    A block is LIVE when its output bbox (``bboxes``, from
+    :func:`_block_bboxes_wcs`), padded by ``corr_margin``, overlaps the
+    union of the per-cutout needed rectangles (``cut_bb`` = (y0, y1, x0,
+    x1) of (E, N) cutout bboxes in the reference frame, padded by
+    ``blot_margin``), on a grid of 8 px cells. Returns ``(idx, valid)``
+    of shape (E, L), L shared across frames and rounded up to 64; pads
+    repeat the first live block and are not valid.
+    """
+    Ho, Wo = out_shape
+    cell = 8
+    gh, gw = -(-Ho // cell), -(-Wo // cell)
+    need = np.zeros((gh, gw), bool)
+    m = blot_margin
+    cy0, cy1b, cx0b, cx1b = [np.asarray(b, np.float64) for b in cut_bb]
+    ry0 = np.floor((cy0 - m) / cell).astype(int)
+    ry1 = np.ceil((cy1b + m) / cell).astype(int)
+    rx0 = np.floor((cx0b - m) / cell).astype(int)
+    rx1 = np.ceil((cx1b + m) / cell).astype(int)
+    for y0, y1, x0, x1 in zip(ry0.ravel(), ry1.ravel(),
+                              rx0.ravel(), rx1.ravel()):
+        if y1 < 0 or x1 < 0 or y0 >= gh or x0 >= gw:
+            continue
+        need[max(y0, 0):y1 + 1, max(x0, 0):x1 + 1] = True
+    # integral image for O(1) any-needed-cell-in-range queries
+    integ = np.zeros((gh + 1, gw + 1), np.int64)
+    integ[1:, 1:] = np.cumsum(np.cumsum(need, 0), 1)
+
+    y0, y1, x0, x1 = [np.asarray(b, np.float64) for b in bboxes]  # (E, nb)
+    pad = corr_margin
+    cy0 = np.clip(np.floor((y0 - pad) / cell).astype(int), 0, gh - 1)
+    cy1 = np.clip(np.ceil((y1 + pad) / cell).astype(int), 0, gh - 1)
+    cx0 = np.clip(np.floor((x0 - pad) / cell).astype(int), 0, gw - 1)
+    cx1 = np.clip(np.ceil((x1 + pad) / cell).astype(int), 0, gw - 1)
+    # blocks entirely outside the output grid never deposit
+    on_grid = ((y1 + pad >= 0) & (y0 - pad < Ho)
+               & (x1 + pad >= 0) & (x0 - pad < Wo))
+    cnt = (integ[cy1 + 1, cx1 + 1] - integ[cy0, cx1 + 1]
+           - integ[cy1 + 1, cx0] + integ[cy0, cx0])
+    live = (cnt > 0) & on_grid
+    E = live.shape[0]
+    L = max(int(live.sum(1).max()), 1)
+    L = min(-(-L // 64) * 64, live.shape[1])  # bucket: shape reuse
+    idx = np.zeros((E, L), np.int64)
+    valid = np.zeros((E, L), bool)
+    for e in range(E):
+        ids = np.flatnonzero(live[e])[:L]
+        idx[e, :len(ids)] = ids
+        idx[e, len(ids):] = ids[0] if len(ids) else 0
+        valid[e, :len(ids)] = True
+    return idx, valid
+
+
 def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
                   src_cat, seg_ok, cut_shape, use_seg):
     """Static per-exposure loop inputs: the image cutouts (rate units)
@@ -218,9 +359,11 @@ def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
 class _LoopArgs:
     """Device-resident inputs of one iteration (E exposures, N sources)."""
 
-    exp_data: torch.Tensor   # (E, H, W) rate data
-    exp_wht: torch.Tensor    # (E, H, W) deposit weights
-    dri_px: torch.Tensor     # (E, H, W) full-frame pixmaps
+    # deposit inputs: (E, H, W) frames, or under the sparse deposit the
+    # (E, L*16, 128) compacted live blocks
+    exp_data: torch.Tensor   # rate data
+    exp_wht: torch.Tensor    # deposit weights
+    dri_px: torch.Tensor     # pixmaps into the reference frame
     dri_py: torch.Tensor
     cut_px: torch.Tensor     # (E, N, h, w) cutout pixmaps
     cut_py: torch.Tensor
@@ -236,12 +379,16 @@ class _LoopArgs:
 
 
 def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
-          a: _LoopArgs, Ms: torch.Tensor, ts: torch.Tensor):
+          a: _LoopArgs, Ms: torch.Tensor, ts: torch.Tensor,
+          track_corr: bool = False):
     """One iteration: re-drizzle, blot, measure, fit, compose.
 
     Returns ``(newM, newt, info)``; ``info`` holds the per-exposure fit
     (G_M, G_t, rms, rmse, mae, nmatches), ``max_shift`` (the eps_shift
-    metric) and the kernels' ``escaped`` counts."""
+    metric), the kernels' ``escaped`` counts and, with ``track_corr``
+    (only the compacted deposit reads it), ``max_corr``: how far any
+    cutout window has moved from its setup position, the sparse deposit's
+    staleness signal."""
     E, N = a.cut_px.shape[:2]
 
     # ---- 1. re-drizzle every exposure with its current correction ----
@@ -279,7 +426,8 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
             blotted.reshape(k * n, hh, ww), img.reshape(k * n, hh, ww),
             cc_type=cfg.cc_type, usfac=cfg.usfac,
             peak_fit_box=cfg.peak_fit_box, fit_type=cfg.fit_type,
-            ref_mask=msk, img_mask=msk, peak_search_box=cfg.peak_search_box)
+            ref_mask=msk, img_mask=msk, peak_search_box=cfg.peak_search_box,
+            measure=measure_window)
         dxy = torch.stack([d.dx, d.dy], dim=-1).reshape(k, n, 2)
         return (dxy, d.fit_ok.reshape(k, n), d.peak.reshape(k, n),
                 esc_pn.sum(1, dtype=torch.int32))
@@ -338,9 +486,21 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
     move2 = (moved * moved).sum(-1)
     wsum = torch.clamp(wgt.sum(1), min=1e-12)
     rms_move = torch.sqrt((wgt * move2).sum(1) / wsum)
+
     info = dict(G_M=G_M, G_t=G_t, rms=fit.rms, rmse=fit.rmse, mae=fit.mae,
                 nmatches=fit.nmatches, max_shift=rms_move.max(),
                 escaped=escaped)
+    if track_corr:
+        # ---- 6. total correction magnitude: an upper bound on how far
+        # any cutout's blot window has moved from its setup position ----
+        dM = newM - torch.eye(2, dtype=newM.dtype, device=newM.device)[None]
+        dpts = torch.einsum("eij,enj->eni", dM, a.xy0) + newt[:, None, :]
+        dnorm = torch.where(a.src_valid, torch.sqrt((dpts * dpts).sum(-1)),
+                            torch.zeros_like(dpts[..., 0]))
+        maxdim = max(cut_shape) if big_shape is None else max(*cut_shape,
+                                                              *big_shape)
+        info["max_corr"] = (dnorm.max() + dM.abs().sum(dim=(1, 2)).max()
+                            * (maxdim * 0.5))
     return newM, newt, info
 
 
@@ -513,11 +673,22 @@ def align_images(
         N = N_pad
     real_src = np.arange(N) < n_real
 
-    # -- per-exposure static inputs (host float64 geometry) ------------- #
+    # -- per-exposure static inputs --------------------------------------- #
+    # cutout pixmaps: float32 on the device ('auto' on CUDA, as the JAX
+    # package on an accelerator) or host float64; frame pixmaps on the
+    # device from device_pixmap_min_pixels. Jacobians are host float64.
+    use_dev_cut = cfg.cutout_pixmaps == "device" or (
+        cfg.cutout_pixmaps == "auto" and dev.type == "cuda")
+    host_frames = (exps[0].data.shape[0] * exps[0].data.shape[1]
+                   < device_pixmap_min_pixels(dev))
     centers = np.zeros((E, N, 2), np.float32)
     blc_all = np.zeros((E, N, 2), np.float32)
-    cut_px = np.zeros((E, N, h, w), np.float32)
-    cut_py = np.zeros((E, N, h, w), np.float32)
+    if not use_dev_cut:
+        cut_px = np.zeros((E, N, h, w), np.float32)
+        cut_py = np.zeros((E, N, h, w), np.float32)
+    # per-cutout ref-frame bboxes from the 4 window corners (host f64,
+    # +-1 px curvature pad): they feed the sparse deposit's live set
+    cut_bb = tuple(np.zeros((E, N)) for _ in range(4))  # y0, y1, x0, x1
     jac = np.zeros((E, N, 2, 2), np.float32)
     xy0 = np.zeros((E, N, 2), np.float32)
     src_valid = np.zeros((E, N), bool)
@@ -529,6 +700,19 @@ def align_images(
     seg_f = np.stack([np.zeros(out_shape, np.float32) if s is None
                       else np.asarray(s, np.float32) for s in seg_planes])
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def corner_bboxes(e, bx, by, hh, ww, rows=slice(None)):
+        """Reference-frame bboxes of (hh, ww) windows at origins bx, by."""
+        cx4 = np.stack([bx, bx + ww - 1, bx, bx + ww - 1]).astype(np.float64)
+        cy4 = np.stack([by, by, by + hh - 1, by + hh - 1]).astype(np.float64)
+        rx4, ry4 = ref_wcs.world_to_pixel(
+            *exps[e].wcs.pixel_to_world(cx4, cy4))
+        for k, v in enumerate((np.asarray(ry4).min(0) - 1.0,
+                               np.asarray(ry4).max(0) + 1.0,
+                               np.asarray(rx4).min(0) - 1.0,
+                               np.asarray(rx4).max(0) + 1.0)):
+            cut_bb[k][e, rows] = v
+
     for e, exp in enumerate(exps):
         if exp.data.shape != exps[0].data.shape:
             raise ValueError("all exposures must share one shape "
@@ -541,7 +725,8 @@ def align_images(
             wht_planes[e] = base_w if mask_w is None else base_w * mask_w
         H, W = exp.data.shape
         t = time.time()
-        dri_maps.append(compute_pixmap(exp.wcs, ref_wcs, (H, W)))
+        if host_frames:  # else one device evaluation after this loop
+            dri_maps.append(compute_pixmap(exp.wcs, ref_wcs, (H, W)))
         t = _mark("frame_pixmaps", t)
         # predicted source positions in this exposure
         sx, sy = exp.wcs.world_to_pixel(ra_cat, dec_cat)
@@ -552,18 +737,34 @@ def align_images(
         bx = np.floor(sx.astype(np.float32) + 0.5).astype(int) - w // 2
         by = np.floor(sy.astype(np.float32) + 0.5).astype(int) - h // 2
         blc_all[e] = np.stack([bx, by], 1)
-        # per-cutout pixmaps into the ref frame + Jacobians (one batched
-        # (N, h, w) float64 WCS evaluation per exposure)
-        ra, dec = exp.wcs.pixel_to_world(xx[None] + bx[:, None, None],
-                                         yy[None] + by[:, None, None])
-        rx, ry = ref_wcs.world_to_pixel(ra, dec)
-        cut_px[e] = rx
-        cut_py[e] = ry
+        corner_bboxes(e, bx, by, h, w)
         cy, cx2 = h // 2, w // 2
-        jac[e, :, 0, 0] = (rx[:, cy, cx2 + 1] - rx[:, cy, cx2 - 1]) / 2.0
-        jac[e, :, 0, 1] = (rx[:, cy + 1, cx2] - rx[:, cy - 1, cx2]) / 2.0
-        jac[e, :, 1, 0] = (ry[:, cy, cx2 + 1] - ry[:, cy, cx2 - 1]) / 2.0
-        jac[e, :, 1, 1] = (ry[:, cy + 1, cx2] - ry[:, cy - 1, cx2]) / 2.0
+        if use_dev_cut:
+            # the grids are built on the device after this loop; the
+            # Jacobians (which f32 central differences would corrupt)
+            # come from host f64 evaluations at the cutout centers
+            ccx = (bx + cx2).astype(np.float64)
+            ccy = (by + cy).astype(np.float64)
+            rx, ry = ref_wcs.world_to_pixel(*exp.wcs.pixel_to_world(
+                np.concatenate([ccx + 1, ccx - 1, ccx, ccx]),
+                np.concatenate([ccy, ccy, ccy + 1, ccy - 1])))
+            rx = np.asarray(rx).reshape(4, N)
+            ry = np.asarray(ry).reshape(4, N)
+            d = [(rx[0] - rx[1]) / 2.0, (rx[2] - rx[3]) / 2.0,
+                 (ry[0] - ry[1]) / 2.0, (ry[2] - ry[3]) / 2.0]
+        else:
+            # per-cutout pixmaps into the ref frame + Jacobians (one
+            # batched (N, h, w) float64 WCS evaluation per exposure)
+            ra, dec = exp.wcs.pixel_to_world(xx[None] + bx[:, None, None],
+                                             yy[None] + by[:, None, None])
+            rx, ry = ref_wcs.world_to_pixel(ra, dec)
+            cut_px[e] = rx
+            cut_py[e] = ry
+            d = [(rx[:, cy, cx2 + 1] - rx[:, cy, cx2 - 1]) / 2.0,
+                 (rx[:, cy + 1, cx2] - rx[:, cy - 1, cx2]) / 2.0,
+                 (ry[:, cy, cx2 + 1] - ry[:, cy, cx2 - 1]) / 2.0,
+                 (ry[:, cy + 1, cx2] - ry[:, cy - 1, cx2]) / 2.0]
+        jac[e, :, 0, 0], jac[e, :, 0, 1], jac[e, :, 1, 0], jac[e, :, 1, 1] = d
         t = _mark("cutout_pixmaps", t)
         # initial predictions in the ref frame = catalog positions
         xy0[e] = xy_cat.astype(np.float32)
@@ -571,6 +772,11 @@ def align_images(
 
     def to_dev(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    def device_cutout_maps(blc, hw):
+        """(E, n, hh, ww) cutout pixmaps on the device."""
+        return compute_cutout_pixmaps_device_stack(
+            [e.wcs for e in exps], ref_wcs, blc, hw, device=dev)
 
     exp_data_t = to_dev(exp_data)
     if all(wp is None for wp in wht_planes):
@@ -581,7 +787,18 @@ def align_images(
             np.full(exps[0].data.shape, wht_scalars[e], np.float32)
             if wp is None else np.asarray(wp, np.float32)
             for e, wp in enumerate(wht_planes)]))
-    cut_px_t, cut_py_t = to_dev(cut_px), to_dev(cut_py)
+    if use_dev_cut:
+        cut_px_t, cut_py_t = device_cutout_maps(blc_all, cut_shape)
+        t = _mark("cutout_pixmaps", t)
+    else:
+        cut_px_t, cut_py_t = to_dev(cut_px), to_dev(cut_py)
+    if host_frames:
+        dri_px_t = to_dev(np.stack([p for p, _ in dri_maps]))
+        dri_py_t = to_dev(np.stack([q for _, q in dri_maps]))
+    else:
+        dri_px_t, dri_py_t = compute_pixmap_device_stack(
+            [e.wcs for e in exps], ref_wcs, exps[0].data.shape, device=dev)
+        t = _mark("frame_pixmaps", t)
     seg_f_t = to_dev(seg_f)
     src_ids_t = to_dev(src_ids)
     src_cat_t = to_dev(src_cat, torch.int32)
@@ -610,21 +827,18 @@ def align_images(
         src_catB = np.concatenate([src_cat[bidx],
                                    np.zeros(NBp - NB, np.int64)])
         seg_okB = np.concatenate([seg_ok[bidx], np.ones(NBp - NB, bool)])
-        # the bucket's cutout pixmaps, host float64 like the base set's
-        # (the Jacobians are shape-independent: the base set's serve)
-        yB, xB = np.mgrid[0:hB, 0:wB].astype(np.float64)
-        cpxB = np.zeros((E, NBp, hB, wB), np.float32)
-        cpyB = np.zeros((E, NBp, hB, wB), np.float32)
-        for e, exp in enumerate(exps):
-            ra, dec = exp.wcs.pixel_to_world(
-                xB[None] + blcB[e, :, 0, None, None].astype(np.float64),
-                yB[None] + blcB[e, :, 1, None, None].astype(np.float64))
-            cpxB[e], cpyB[e] = ref_wcs.world_to_pixel(ra, dec)
-        cpxB_t, cpyB_t = to_dev(cpxB), to_dev(cpyB)
+        # the bucket's cutout pixmaps: f32 on the device, as the JAX
+        # package builds them whatever cutout_pixmaps says (the Jacobians
+        # are shape-independent: the base set's serve)
+        cpxB_t, cpyB_t = device_cutout_maps(blcB, big_hw)
         bimg, bmsk, bseg = _stage_inputs(
             exp_data_t, to_dev(centersB), seg_f_t, cpxB_t, cpyB_t,
             to_dev(src_idsB), to_dev(src_catB, torch.int32),
             to_dev(seg_okB, torch.bool), big_hw, have_seg)
+        # widen the bucket sources' ref-frame bboxes to the big windows
+        for e in range(E):
+            corner_bboxes(e, blcB[e, :NB, 0], blcB[e, :NB, 1], hB, wB,
+                          rows=bidx)
         bidx_pad = np.concatenate([bidx, np.zeros(NBp - NB, np.int64)])
         big = (cpxB_t, cpyB_t, bimg, bmsk, bseg,
                to_dev(bidx_pad, torch.int64),
@@ -635,63 +849,167 @@ def align_images(
     dri_ratios = tuple(round(float(exp.wcs.pscale / ref_wcs.pscale), 6)
                        for exp in exps)
     args = _LoopArgs(
-        exp_data=exp_data_t, exp_wht=exp_wht_t,
-        dri_px=to_dev(np.stack([p for p, _ in dri_maps])),
-        dri_py=to_dev(np.stack([q for _, q in dri_maps])),
-        cut_px=cut_px_t, cut_py=cut_py_t, img_cut=img_cut, img_msk=img_msk,
-        seg_cut=seg_cut, jac=to_dev(jac), xy0=to_dev(xy0),
+        exp_data=exp_data_t, exp_wht=exp_wht_t, dri_px=dri_px_t,
+        dri_py=dri_py_t, cut_px=cut_px_t, cut_py=cut_py_t, img_cut=img_cut,
+        img_msk=img_msk, seg_cut=seg_cut, jac=to_dev(jac), xy0=to_dev(xy0),
         src_w=to_dev(np.repeat(flux_w[None], E, 0)),
         src_valid=to_dev(src_valid, torch.bool), big=big)
+
+    # -- sparse in-loop deposit: the re-drizzle only feeds the blot, so
+    # input blocks whose deposits cannot reach any cutout's blot window
+    # are compacted away ('auto' = on CUDA, where the kernels run, as the
+    # JAX package turns it on with its Pallas kernels) -------------------- #
+    margin = max(12, int(max(h, w) // 4))  # affine-correction headroom
+    reach = max(kernel_reach(cfg.kernel, cfg.pixfrac, r)
+                for r in dri_ratios) + 0.1
+    # the JAX package's margins, so the live set is the same: its Pallas
+    # blot tile reads up to 4 px past a window and its deposit tiles add
+    # 1 px. The CUDA kernels have no tiles: B2 reads only the
+    # interpolant's footprint (3 px at poly5) and B1 writes within
+    # `reach`, so margin + 3 and reach + margin would do.
+    live_margins = dict(blot_margin=float(margin + 4),
+                        corr_margin=float(reach + margin + 1))
+    sparse = None
+    if cfg.sparse_deposit is True or (cfg.sparse_deposit == "auto"
+                                      and dev.type == "cuda"):
+        bb = _block_bboxes_wcs([e.wcs for e in exps], ref_wcs,
+                               exps[0].data.shape)
+        idx, valid_b = _live_block_indices(bb, cut_bb, out_shape,
+                                           **live_margins)
+        nb_total = int(bb[0].shape[1])
+        # fraction of the input blocks the live set keeps; the deposit
+        # walks only those (``sparse_live_frac``) when that pays
+        setup_breakdown["sparse_live_set"] = round(
+            idx.shape[-1] / nb_total, 4)
+        if idx.shape[-1] < 0.85 * nb_total:  # compaction must pay
+            dep = _compact_blocks(exp_data_t, exp_wht_t, dri_px_t, dri_py_t,
+                                  to_dev(idx, torch.int64),
+                                  to_dev(valid_b, torch.bool))
+            args = dataclasses.replace(args, exp_data=dep[0],
+                                       exp_wht=dep[1], dri_px=dep[2],
+                                       dri_py=dep[3])
+            # the live set is policed against the applied corrections
+            # (max_corr) and self-heals when they outgrow this margin
+            sparse = dict(bb=bb, nb_total=nb_total, margin=float(margin),
+                          heals=0, warned=False)
+            # fraction of the frame's input blocks the deposit still walks
+            setup_breakdown["sparse_live_frac"] = round(
+                idx.shape[-1] / nb_total, 4)
+        t = _mark("sparse_blocks", t)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # staging is charged to setup
     t = _mark("stage_args", t)
     setup_s = time.time() - t_setup
 
+    def sparse_heal_or_warn(max_corr: float, it: int) -> bool:
+        """Police the sparse live set against the applied corrections.
+
+        On a breach the per-cutout bboxes are moved by the current
+        affines, the live blocks recomputed around the union of setup and
+        corrected positions, the deposit inputs re-compacted, and the
+        caller re-enters the fixed point from the current state. Two heals
+        are attempted (each raises the margin to the correction at heal
+        time), then a breach only warns. Returns True to re-enter."""
+        nonlocal args
+        if max_corr <= sparse["margin"]:
+            return False
+        if sparse["heals"] < 2:
+            sparse["heals"] += 1
+            Ms_h = Ms.cpu().numpy().astype(np.float64)
+            ts_h = ts.cpu().numpy().astype(np.float64)
+            y0c, y1c, x0c, x1c = cut_bb
+            cx4 = np.stack([x0c, x0c, x1c, x1c])  # (4, E, N) corners
+            cy4 = np.stack([y0c, y1c, y0c, y1c])
+            nx = (Ms_h[:, 0, 0][None, :, None] * cx4
+                  + Ms_h[:, 0, 1][None, :, None] * cy4
+                  + ts_h[:, 0][None, :, None])
+            ny = (Ms_h[:, 1, 0][None, :, None] * cx4
+                  + Ms_h[:, 1, 1][None, :, None] * cy4
+                  + ts_h[:, 1][None, :, None])
+            heal_bb = (np.minimum(y0c, ny.min(0)), np.maximum(y1c, ny.max(0)),
+                       np.minimum(x0c, nx.min(0)), np.maximum(x1c, nx.max(0)))
+            idx2, valid2 = _live_block_indices(sparse["bb"], heal_bb,
+                                               out_shape, **live_margins)
+            dep = _compact_blocks(exp_data_t, exp_wht_t, dri_px_t, dri_py_t,
+                                  to_dev(idx2, torch.int64),
+                                  to_dev(valid2, torch.bool))
+            args = dataclasses.replace(args, exp_data=dep[0],
+                                       exp_wht=dep[1], dri_px=dep[2],
+                                       dri_py=dep[3])
+            sparse["margin"] = float(max_corr + margin)
+            setup_breakdown["sparse_live_frac"] = round(
+                idx2.shape[-1] / sparse["nb_total"], 4)
+            setup_breakdown["sparse_heals"] = sparse["heals"]
+            return True
+        if not sparse["warned"]:
+            sparse["warned"] = True
+            warnings.warn(
+                f"applied corrections reach {max_corr:.1f} px at iteration "
+                f"{it}, beyond the sparse-deposit live-set margin of "
+                f"{sparse['margin']:.0f} px (after {sparse['heals']} "
+                "self-heal(s)) — blot windows may now sample un-deposited "
+                "reference pixels. Re-run with sparse_deposit=False (or a "
+                "larger cutout_shape) for exact results.", stacklevel=3)
+        return False
+
     # ------------------------------------------------------------------ #
     # fixed-point iteration: state and history stay on the device; only
-    # max_shift is read back each iteration
+    # max_shift is read back each iteration. A sparse self-heal re-enters
+    # the loop from the current state (convergence reached on stale
+    # deposits is not trusted).
     # ------------------------------------------------------------------ #
     T = int(cfg.max_iterations)
     Ms = torch.eye(2, dtype=torch.float32, device=dev).repeat(E, 1, 1)
     ts = torch.zeros((E, 2), dtype=torch.float32, device=dev)
     z = dict(device=dev)
-    hist_d = dict(
-        G_M=torch.zeros((T, E, 2, 2), **z), G_t=torch.zeros((T, E, 2), **z),
-        rms=torch.zeros((T, E, 2), **z), rmse=torch.zeros((T, E), **z),
-        mae=torch.zeros((T, E), **z),
-        nmatches=torch.zeros((T, E), dtype=torch.int32, **z),
-        escaped=torch.zeros((T, E), dtype=torch.int32, **z))
     eps = np.float32(cfg.eps_shift)
+    hist: list[list[ImageAlignInfo]] = []
     n_iter = 0
     converged = False
-    t_it = time.time()
-    for it in range(T):
-        Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios, big_hw,
-                             args, Ms, ts)
-        for k, buf in hist_d.items():
-            buf[it] = info[k]
-        n_iter += 1
-        if info["max_shift"].item() < eps:
-            converged = True
+    while True:
+        hist_d = dict(
+            G_M=torch.zeros((T, E, 2, 2), **z),
+            G_t=torch.zeros((T, E, 2), **z), rms=torch.zeros((T, E, 2), **z),
+            rmse=torch.zeros((T, E), **z), mae=torch.zeros((T, E), **z),
+            nmatches=torch.zeros((T, E), dtype=torch.int32, **z),
+            escaped=torch.zeros((T, E), dtype=torch.int32, **z))
+        if sparse is not None:
+            hist_d["max_corr"] = torch.zeros((T,), **z)
+        n_new = 0
+        converged = False
+        t_it = time.time()
+        for it in range(T):
+            Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios,
+                                 big_hw, args, Ms, ts,
+                                 track_corr=sparse is not None)
+            for k, buf in hist_d.items():
+                buf[it] = info[k]
+            n_new += 1
+            if info["max_shift"].item() < eps:
+                converged = True
+                break
+        iter_s = (time.time() - t_it) / max(n_new, 1)
+        h_np = {k: v[:n_new].cpu().numpy() for k, v in hist_d.items()}
+        for it in range(n_new):
+            recs = [ImageAlignInfo(
+                name=exps[e].name, iteration=n_iter + it,
+                shift=tuple(map(float, h_np["G_t"][it, e])),
+                matrix=tuple(tuple(map(float, row))
+                             for row in h_np["G_M"][it, e]),
+                rms=tuple(map(float, h_np["rms"][it, e])),
+                rmse=float(h_np["rmse"][it, e]),
+                mae=float(h_np["mae"][it, e]),
+                nmatches=int(h_np["nmatches"][it, e]), iter_s=iter_s,
+                escaped=int(h_np["escaped"][it, e])) for e in range(E)]
+            if cfg.history == "all" or not hist:
+                hist.append(recs)
+            else:
+                hist[-1] = recs
+        n_iter += n_new
+        if sparse is None or not sparse_heal_or_warn(
+                float(h_np["max_corr"].max()) if n_new else 0.0,
+                n_iter - 1):
             break
-    iter_s = (time.time() - t_it) / max(n_iter, 1)
-    h_np = {k: v[:n_iter].cpu().numpy() for k, v in hist_d.items()}
-
-    hist: list[list[ImageAlignInfo]] = []
-    for it in range(n_iter):
-        recs = [ImageAlignInfo(
-            name=exps[e].name, iteration=it,
-            shift=tuple(map(float, h_np["G_t"][it, e])),
-            matrix=tuple(tuple(map(float, row))
-                         for row in h_np["G_M"][it, e]),
-            rms=tuple(map(float, h_np["rms"][it, e])),
-            rmse=float(h_np["rmse"][it, e]), mae=float(h_np["mae"][it, e]),
-            nmatches=int(h_np["nmatches"][it, e]), iter_s=iter_s,
-            escaped=int(h_np["escaped"][it, e])) for e in range(E)]
-        if cfg.history == "all" or not hist:
-            hist.append(recs)
-        else:
-            hist[-1] = recs
 
     # ------------------------------------------------------------------ #
     # write the corrections back into the WCSs (host)

@@ -4,7 +4,12 @@
   deposit (replaces ``subpixal_tpu/kernels/drizzle.py ·
   drizzle_deposit_pallas``);
 * :mod:`subpixal_tpu_torch.kernels.blot` — kernel B2, the blot gather
-  (replaces ``subpixal_tpu/kernels/blot.py · sample_cutouts_pallas``).
+  (replaces ``subpixal_tpu/kernels/blot.py · sample_cutouts_pallas``);
+* :mod:`subpixal_tpu_torch.kernels.measure` — kernel B3, the fused
+  displacement measurement (replaces ``subpixal_tpu/kernels/measure.py ·
+  measure_displacement_rank3``); its ``find_displacement`` (the one the
+  package exports) runs it for ``usfac > 1`` with a window-confined
+  coarse search.
 
 Each wrapper takes the plain PyTorch version (in :mod:`..ops`) for
 tensors on the CPU and launches its kernel for tensors on a CUDA device,
@@ -19,7 +24,8 @@ from __future__ import annotations
 __all__ = ["LAUNCHES", "reset_launch_counts", "build"]
 
 #: kernel name -> number of kernel launches since the last reset
-LAUNCHES = {"drizzle_deposit": 0, "blot_gather": 0}
+LAUNCHES = {"drizzle_deposit": 0, "blot_gather": 0,
+            "measure_displacement": 0}
 
 
 def reset_launch_counts() -> None:

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "drizzle_deposit": "drizzle_deposit.cu",
     "blot_gather": "blot_gather.cu",
+    "measure_displacement": "measure_displacement.cu",
 }
 
 _LOCK = threading.Lock()

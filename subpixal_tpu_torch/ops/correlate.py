@@ -9,7 +9,11 @@ package's CPU path is ``jnp.fft``; its TPU matmul-DFT and lane-packed
 layouts have no counterpart on the card). The coarse integer peak under a
 small search box is read from a windowed half-spectrum matrix DFT, and
 the integer part of every DFT phase is reduced in int32 before any float
-(:func:`_us_dft_kernel`), as in the reference.
+(:func:`_us_dft_kernel`), as in the reference. With ``usfac > 1`` and
+such a box the whole measurement is :func:`measure_window`, or the
+callable passed as ``find_displacement(measure=...)``: the align loop and
+the package's public ``find_displacement`` pass kernel B3's wrapper
+(:mod:`subpixal_tpu_torch.kernels.measure`).
 
 Sign convention: ``find_displacement(ref, img)`` returns ``(dx, dy)``
 such that ``img[y, x] ≈ ref[y - dy, x - dx]``.
@@ -26,7 +30,8 @@ import torch
 from .._precision import full_f32
 from .peaks import find_peak, normalize_search_box
 
-__all__ = ["cross_correlate", "find_displacement", "Displacement"]
+__all__ = ["cross_correlate", "find_displacement", "measure_window",
+           "Displacement"]
 
 #: largest search-window side whose coarse lags are evaluated by the
 #: windowed matrix DFT instead of the full inverse transform
@@ -196,17 +201,42 @@ def _windowed_coarse_surface(G, bounds, H: int, W: int):
     return C / (H * W), lag_y0, lag_x0, ny, nx
 
 
+def measure_window(ref, img, ref_mask=None, img_mask=None, *,
+                   cc_type: str = "NCC", usfac: int, nwin: int, bounds):
+    """The windowed ``usfac > 1`` measurement, plain version of kernel B3
+    (:func:`subpixal_tpu_torch.kernels.measure.measure_window`).
+
+    Contract of the JAX package's ``measure_displacement_rank3``: the
+    cross-spectrum of each (B, H, W) pair, the correlation at the integer
+    lags inside ``bounds`` (r0, r1, c0, c1 on the fftshifted surface) and
+    its first-index argmax, then the ``usfac``-upsampled window around
+    it. Returns ``(C2, s0y, s0x)``: C2 (B, nwin, nwin), already divided by
+    H·W, sampled at ``s0 + (i - nwin//2) / usfac`` per axis, and the (B,)
+    int32 coarse shifts in signed-lag space.
+    """
+    B, H, W = ref.shape
+    G = _cross_spectrum(ref, img, cc_type, ref_mask, img_mask)
+    Cc, ly0, lx0, ny, nx = _windowed_coarse_surface(G, bounds, H, W)
+    flat = torch.argmax(Cc.reshape(B, -1), dim=-1)
+    s0y = (flat // nx).to(torch.int32) + ly0
+    s0x = (flat % nx).to(torch.int32) + lx0
+    C, _, _ = _upsampled_correlation(G, s0y, s0x, int(usfac), nwin, H, W)
+    return C, s0y, s0x
+
+
 @full_f32()
 def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
                       peak_fit_box: int = 5, fit_type: str = "quadratic",
                       ref_mask=None, img_mask=None,
-                      peak_search_box="fitbox") -> Displacement:
+                      peak_search_box="fitbox",
+                      measure=measure_window) -> Displacement:
     """Subpixel displacement of ``img`` relative to ``ref``, batched over
     (B, H, W) (or one (H, W) pair). Parameters as the JAX package's
     ``find_displacement``: ``usfac`` > 1 refines the coarse peak in a
     matrix-DFT upsampled window; masks mark valid pixels;
     ``peak_search_box`` confines the coarse argmax ('fitbox' = around
-    zero lag)."""
+    zero lag). ``measure`` computes the windowed ``usfac > 1``
+    measurement, with :func:`measure_window`'s contract."""
     squeeze = ref.dim() == 2
     ref_b = ref[None] if squeeze else ref
     img_b = img[None] if squeeze else img
@@ -214,9 +244,8 @@ def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
         raise ValueError(f"ref and img must have the same shape, got "
                          f"{tuple(ref_b.shape)} vs {tuple(img_b.shape)}")
     B, H, W = ref_b.shape
-    G = _cross_spectrum(ref_b, img_b, cc_type, ref_mask, img_mask)
-
     if usfac <= 1:
+        G = _cross_spectrum(ref_b, img_b, cc_type, ref_mask, img_mask)
         cc_s = torch.fft.fftshift(torch.fft.irfft2(G, s=(H, W)),
                                   dim=(-2, -1))
         pk = find_peak(cc_s, peak_fit_box=peak_fit_box, fit_type=fit_type,
@@ -232,11 +261,13 @@ def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
                     and bounds[1] - bounds[0] <= _WINDOWED_COARSE_MAX
                     and bounds[3] - bounds[2] <= _WINDOWED_COARSE_MAX)
         if windowed:
-            Cc, ly0, lx0, ny, nx = _windowed_coarse_surface(G, bounds, H, W)
-            flat = torch.argmax(Cc.reshape(B, -1), dim=-1)
-            s0y = (flat // nx).to(torch.int32) + ly0
-            s0x = (flat % nx).to(torch.int32) + lx0
+            C, s0y, s0x = measure(
+                ref_b, img_b, ref_mask, img_mask, cc_type=cc_type,
+                usfac=int(usfac), nwin=nwin, bounds=bounds)
+            off_y = s0y.to(torch.float32) - (nwin // 2) / usfac
+            off_x = s0x.to(torch.float32) - (nwin // 2) / usfac
         else:
+            G = _cross_spectrum(ref_b, img_b, cc_type, ref_mask, img_mask)
             cc_s = torch.fft.fftshift(torch.fft.irfft2(G, s=(H, W)),
                                       dim=(-2, -1))
             search = cc_s
@@ -251,8 +282,8 @@ def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
             flat = torch.argmax(search.reshape(B, -1), dim=-1)
             s0y = (flat // W).to(torch.int32) - H // 2
             s0x = (flat % W).to(torch.int32) - W // 2
-        C, off_y, off_x = _upsampled_correlation(G, s0y, s0x, int(usfac),
-                                                 nwin, H, W)
+            C, off_y, off_x = _upsampled_correlation(G, s0y, s0x, int(usfac),
+                                                     nwin, H, W)
         pk = find_peak(C, peak_fit_box=peak_fit_box, fit_type=fit_type)
         res = Displacement(dx=off_x + pk.x / usfac, dy=off_y + pk.y / usfac,
                            peak=pk.value, fit_ok=pk.fit_ok)

@@ -4,8 +4,11 @@ Counterpart of ``subpixal_tpu/resample/__init__.py``: the ``Exposure``
 container, rate-unit data and statistical weights
 (``exposure_rate_data``, ``exposure_pixel_weight``), the output grid
 (``make_output_wcs``) and ``Drizzle`` with ``execute`` and its products.
-Pixmaps are host float64 (:func:`subpixal_tpu_torch.blot.compute_pixmap`);
-every deposit goes through kernel B1
+Pixmaps are host float64 (:func:`subpixal_tpu_torch.blot.compute_pixmap`)
+below :func:`~subpixal_tpu_torch.blot.device_pixmap_min_pixels` and
+float32 on the Drizzle's device from there (256² on CUDA, 2048² on the
+CPU, as the JAX package's ``_frame_pixmap``); every deposit goes through
+kernel B1
 (:func:`subpixal_tpu_torch.kernels.drizzle.drizzle_deposit`) on the
 Drizzle's ``device``.
 """
@@ -17,7 +20,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .blot import compute_pixmap
+from .blot import (compute_pixmap, compute_pixmap_device,
+                   device_pixmap_min_pixels)
 from .kernels.drizzle import drizzle_deposit
 from .ops.drizzle import drizzle_combine
 from .wcs import TanWCS
@@ -184,9 +188,18 @@ class Drizzle:
             self._owcs = self._owcs or owcs
             self._oshape = self._oshape or oshape
 
+    def _frame_pixmap(self, wcs: TanWCS, shape: tuple[int, int]):
+        """Drizzle pixmap: f64 host for small frames, f32 on the device
+        from ``device_pixmap_min_pixels`` (the deposit only needs
+        mpix-class grids)."""
+        if shape[0] * shape[1] >= device_pixmap_min_pixels(self.device):
+            return compute_pixmap_device(wcs, self._owcs, shape,
+                                         device=self.device)
+        return compute_pixmap(wcs, self._owcs, shape)
+
     def _deposit(self, exp: Exposure):
         H, W = exp.data.shape
-        px, py = compute_pixmap(exp.wcs, self._owcs, (H, W))
+        px, py = self._frame_pixmap(exp.wcs, (H, W))
         base, mask = exposure_pixel_weight(exp, self.wht_type)
         # a scalar base weight scales the (linear) deposit afterwards
         scale = 1.0
@@ -195,8 +208,10 @@ class Drizzle:
         else:
             wht = base if mask is None else base * mask
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float32),
+        def dev(a):  # host planes, or device pixmaps already in place
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a, np.float32)
+            return torch.as_tensor(a, dtype=torch.float32,
                                    device=self.device).contiguous()
 
         s, w, _ = drizzle_deposit(

@@ -332,7 +332,7 @@ def apply_tangent_affine(
 ) -> TanWCS:
     """Apply an alignment correction fitted in ``ref_wcs`` pixel space.
 
-    The align fit (see :func:`subpixal_tpu.ops.fit.iter_linear_fit`)
+    The align fit (see :func:`subpixal_tpu_torch.ops.fit.iter_linear_fit`)
     found that a source whose current WCS predicts reference-frame pixel
     ``p`` is actually located at ``F(p) = matrix @ p + shift``. The
     corrected sky position of any point is therefore

@@ -145,8 +145,6 @@ def test_history_last_keeps_one_record():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(wcsupdate="otf"), "A12"),
-    (dict(sparse_deposit=True), "A12"),
-    (dict(cutout_pixmaps="device"), "A9"),
     (dict(device_catalog="device"), "A13"),
     (dict(match_sky=True), "A10"),
     (dict(static_mask=True), "A10"),

@@ -6,27 +6,38 @@ without one every test here skips. The file imports neither ``jax`` nor
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Kernels and plain versions evaluate the same float32 formulas; B1's
-atomics sum in an order that changes from run to run and both kernels
-fuse multiply-adds, so values agree to ``REL_TOL`` relative to the
-largest plain value (at least 1), and validity and escape counts exactly.
+B1 and B2 evaluate the same float32 formulas as their plain versions;
+B1's atomics sum in an order that changes from run to run and both
+kernels fuse multiply-adds, so values agree to ``REL_TOL`` relative to
+the largest plain value (at least 1), and validity and escape counts
+exactly. B3 sums direct DFTs where its plain version runs FFTs, so its
+window agrees to ``C2_TOL`` of its largest value (the JAX package's bar
+for its own fused kernel) and its coarse shifts exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from subpixal_tpu_torch import align_images, kernels
+from subpixal_tpu_torch import align_images, find_displacement, kernels
 from subpixal_tpu_torch.kernels.blot import sample_cutouts
 from subpixal_tpu_torch.kernels.drizzle import drizzle_deposit
+from subpixal_tpu_torch.kernels.measure import measure_window
 from subpixal_tpu_torch.ops.drizzle import DRIZZLE_KERNELS
 from subpixal_tpu_torch.ops.drizzle import drizzle_deposit as plain_deposit
+from subpixal_tpu_torch.ops.correlate import \
+    find_displacement as plain_find_displacement
+from subpixal_tpu_torch.ops.correlate import measure_window as plain_measure
 from subpixal_tpu_torch.ops.interp import INTERP_TAPS, sample_image
+from subpixal_tpu_torch.ops.peaks import normalize_search_box
+from subpixal_tpu_torch.resample import Exposure
+from subpixal_tpu_torch.wcs import TanWCS
 from subpixal_tpu_torch.testing import pairwise_shift_errors, simulate_stack
 
 torch.set_num_threads(2)
 
 REL_TOL = 1e-5
+C2_TOL = 5e-4
 
 
 @pytest.fixture
@@ -115,6 +126,76 @@ def test_kernels_raise_on_inputs_they_do_not_take(card):
         sample_cutouts(img, x.double(), y.double())
     with pytest.raises(ValueError):
         sample_cutouts(img.t(), x, y)
+    ref, im, _ = _pairs(card, 4, 16, 0.4, masked=False)
+    kw = dict(usfac=4, nwin=8, bounds=(6, 11, 6, 11))
+    with pytest.raises(ValueError):
+        measure_window(ref.double(), im.double(), **kw)
+    with pytest.raises(ValueError):
+        measure_window(ref.transpose(1, 2), im, **kw)
+    with pytest.raises(ValueError):
+        measure_window(ref, im[:2], **kw)
+
+
+def _pairs(dev, B, n, shift, masked, seed=0, sigma=1.6):
+    """Star cutout pairs (img shifted by up to ``shift`` px), with a
+    shared bool mask as the align loop passes."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    dx = rng.uniform(-shift, shift, B)[:, None, None]
+    dy = rng.uniform(-shift, shift, B)[:, None, None]
+
+    def star(ox, oy):
+        return np.exp(-((xx - n / 2 - ox) ** 2 + (yy - n / 2 - oy) ** 2)
+                      / (2 * sigma ** 2))
+
+    ref = star(0.0, 0.0)[None] + rng.normal(0, 1e-3, (B, n, n))
+    img = star(dx, dy) + rng.normal(0, 1e-3, (B, n, n))
+    mask = (torch.tensor(rng.random((B, n, n)) > 0.05, device=dev)
+            if masked else None)
+    return (torch.tensor(ref, dtype=torch.float32, device=dev),
+            torch.tensor(img, dtype=torch.float32, device=dev), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,usfac,cc_type,masked,search", [
+    (512, 32, 8, "NCC", True, "fitbox"),     # the new path's shape
+    (500, 64, 10, "NCC", False, "fitbox"),   # bench.py's displacement batch
+    (16, 256, 8, "NCC", True, "fitbox"),     # the oversized bucket's cap
+    (37, 48, 8, "CC", True, 7),
+    (37, 32, 10, "ZNCC", False, 9),
+])
+def test_measure_kernel_matches_plain(card, B, n, usfac, cc_type, masked,
+                                      search):
+    ref, img, m = _pairs(card, B, n, 0.45 if search == "fitbox" else 2.5,
+                         masked, seed=n)
+    bounds = normalize_search_box(search, n, n, 5)
+    nwin = -(-(usfac + 5 + 1) // 8) * 8
+    kw = dict(cc_type=cc_type, usfac=usfac, nwin=nwin, bounds=bounds)
+    before = kernels.LAUNCHES["measure_displacement"]
+    c2, sy, sx = measure_window(ref, img, m, m, **kw)
+    pc2, psy, psx = plain_measure(ref, img, m, m, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["measure_displacement"] == before + 1
+    assert c2.shape == (B, nwin, nwin) and sy.dtype == torch.int32
+    assert torch.equal(sy, psy) and torch.equal(sx, psx)
+    scale = float(pc2.abs().max())
+    assert float((c2 - pc2).abs().max()) <= C2_TOL * scale
+
+
+@pytest.mark.cuda
+def test_find_displacement_launches_measure_kernel(card):
+    """The package's find_displacement runs the windowed usfac > 1
+    measurement through B3 (one launch); the plain one, with its default
+    measurement, launches nothing and gives the same shifts."""
+    ref, img, m = _pairs(card, 64, 32, 0.45, True, seed=4)
+    kw = dict(usfac=8, fit_type="gaussian", ref_mask=m, img_mask=m)
+    before = kernels.LAUNCHES["measure_displacement"]
+    d = find_displacement(ref, img, **kw)
+    assert kernels.LAUNCHES["measure_displacement"] == before + 1
+    dp = plain_find_displacement(ref, img, **kw)
+    assert kernels.LAUNCHES["measure_displacement"] == before + 1
+    assert float((d.dx - dp.dx).abs().max()) < 1e-3
+    assert float((d.dy - dp.dy).abs().max()) < 1e-3
 
 
 @pytest.mark.cuda
@@ -131,3 +212,63 @@ def test_align_goes_through_kernels(card):
     cpu = align_images(exposures=exps, device="cpu", max_iterations=1)
     for a, b in zip(res.history[0], cpu.history[0]):
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_new_path_goes_through_all_kernels(card):
+    """The JAX package's align configuration on the card: device pixmaps,
+    the sparse deposit, and all three kernels; its first iteration equals
+    the CPU run's (host pixmaps, dense deposit, plain versions)."""
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    kw = dict(exposures=exps, fitgeom="shift", usfac=8, fit_type="gaussian")
+    kernels.reset_launch_counts()
+    res = align_images(device="cuda", max_iterations=6, **kw)
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert "cutout_pixmaps" in res.setup_breakdown
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+    cpu = align_images(device="cpu", max_iterations=1, **kw)
+    for a, b in zip(res.history[0], cpu.history[0]):
+        assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
+def _wide_scene(E=2, shape=(512, 1024), ns=8, seed=13):
+    """A wide frame with sources in its left part only, so the sparse
+    deposit's live set leaves most input blocks out."""
+    rng = np.random.default_rng(seed)
+    cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+    stars = np.stack([rng.uniform(60, 380, ns),
+                      rng.uniform(60, shape[0] - 60, ns)], 1)
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float32)
+    exps = []
+    for e in range(E):
+        dx = rng.uniform(-0.3, 0.3)
+        img = rng.normal(0, 0.01, shape).astype(np.float32)
+        for sx, sy in stars:
+            r2 = (xx - sx - dx) ** 2 + (yy - sy) ** 2
+            img += np.where(r2 < 64.0, 20.0 * np.exp(-r2 / (2 * 1.6 ** 2)),
+                            0.0).astype(np.float32)
+        exps.append(Exposure(img, TanWCS(
+            crpix=np.array([shape[1] / 2, shape[0] / 2]),
+            crval=np.array([150.0, 2.0]), cd=cd), name=f"s{e}"))
+    return exps
+
+
+@pytest.mark.cuda
+def test_sparse_deposit_on_card(card):
+    """The compacted (L*16, 128) block pseudo-images go through B1 on the
+    card; every iteration equals the CPU run of the same configuration."""
+    kw = dict(exposures=_wide_scene(), fitgeom="shift", usfac=8,
+              fit_type="gaussian", cutout_shape=(64, 64), min_sources=3,
+              max_iterations=4, sparse_deposit=True,
+              cutout_pixmaps="device")
+    kernels.reset_launch_counts()
+    res = align_images(device="cuda", **kw)
+    assert res.setup_breakdown["sparse_live_frac"] < 0.85
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    cpu = align_images(device="cpu", **kw)
+    assert res.n_iterations == cpu.n_iterations
+    for ra, rb in zip(res.history, cpu.history):
+        for a, b in zip(ra, rb):
+            assert a.nmatches == b.nmatches
+            assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
