@@ -19,7 +19,8 @@ the ``eps_shift`` test passes.
   away once at setup, and the live set self-heals when the applied
   corrections outgrow its margin.
 * One iteration (:func:`_step`) runs on the device: re-drizzle every
-  exposure through its affine-corrected pixmap (kernel B1), blot the
+  exposure through its affine-corrected pixmap (the whole stack in one
+  launch of kernel B1), blot the
   combined image at every (exposure, source) cutout grid (kernel B2),
   ``find_displacement`` (kernel B3 for ``usfac > 1`` under a small search
   box; ``torch.fft`` otherwise), the per-exposure fits, and the affine
@@ -48,7 +49,7 @@ from .blot import (compute_cutout_pixmaps_device_stack, compute_pixmap,
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .cutout import create_primary_cutouts
 from .kernels.blot import sample_cutouts
-from .kernels.drizzle import drizzle_deposit
+from .kernels.drizzle import drizzle_deposit_stack
 from .kernels.measure import measure_window
 from .ops.correlate import find_displacement
 from .ops.cutouts import extract_cutouts
@@ -391,20 +392,13 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
     staleness signal."""
     E, N = a.cut_px.shape[:2]
 
-    # ---- 1. re-drizzle every exposure with its current correction ----
-    sci = wht = None
-    esc = []
-    for e in range(E):
-        px, py = _affine_apply_grid(Ms[e], ts[e], a.dri_px[e], a.dri_py[e])
-        s, w, es = drizzle_deposit(a.exp_data[e], a.exp_wht[e], px, py,
-                                   out_shape, pixfrac=cfg.pixfrac,
-                                   pscale_ratio=dri_ratios[e],
-                                   kernel=cfg.kernel)
-        sci = s if sci is None else sci + s
-        wht = w if wht is None else wht + w
-        esc.append(es)
+    # ---- 1. re-drizzle every exposure with its current correction, the
+    # whole stack in one deposit ----
+    px, py = _affine_apply_grid(Ms, ts, a.dri_px, a.dri_py)
+    sci, wht, escaped = drizzle_deposit_stack(
+        a.exp_data, a.exp_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
+        pscale_ratio=dri_ratios, kernel=cfg.kernel)
     drz = drizzle_combine(sci, wht)
-    escaped = torch.stack(esc)
 
     def measure_set(Mi, ti, cpx, cpy, img, mk0, seg, hw, slot_valid=None):
         """Displacements of one cutout set (k, n, hh, ww) vs ``drz``."""

@@ -22,7 +22,7 @@ from ..ops.correlate import measure_window as _plain
 from . import LAUNCHES
 from ._build import load
 
-__all__ = ["measure_window", "find_displacement"]
+__all__ = ["measure_window", "find_displacement", "uses_fft_kernel"]
 
 #: normalisation mode -> code understood by csrc/measure_displacement.cu
 _CC, _NCC_MASKED, _NCC_SPECTRAL = 0, 1, 2
@@ -35,11 +35,21 @@ def _lib():
     fn = lib.measure_window_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [_VP] * 4 + [ctypes.c_int] * 9 + [_VP] * 8
+        fn.argtypes = [_VP] * 4 + [ctypes.c_int] * 10 + [_VP] * 8
         ws = lib.measure_window_workspace_floats
         ws.restype = ctypes.c_longlong
         ws.argtypes = [ctypes.c_int] * 6
+        route = lib.measure_window_route
+        route.restype = ctypes.c_int
+        route.argtypes = [ctypes.c_int] * 4
     return lib
+
+
+def uses_fft_kernel(H: int, W: int, nwin: int, ny: int) -> bool:
+    """Whether (H, W) cutouts at window ``nwin`` and ``ny`` coarse rows
+    take the FFT kernel (square 16, 32, 64; two warps a pair) rather
+    than the one-block-per-pair kernel; the launcher picks by shape."""
+    return bool(_lib().measure_window_route(H, W, nwin, ny))
 
 
 @functools.lru_cache(maxsize=16)
@@ -70,12 +80,33 @@ def _consts(H: int, W: int, usfac: int, nwin: int, device: str):
     return dev(tw), dev(k2y.real, k2y.imag), dev(k2x.real, k2x.imag)
 
 
-def _mask(m, shape, dev):
-    if m is None:
-        return None
-    if m.device != dev:
-        raise ValueError(f"measure_window: mask on {m.device}, data on {dev}")
-    return torch.broadcast_to(m, shape).to(torch.float32).contiguous()
+def _masks(ref_mask, img_mask, shape, dev):
+    """Both masks as the kernel reads them, and whether they are f32: bytes
+    when every given mask is bool (the align loop's, read in place), else
+    f32. None stays None (all ones) unless the other side has a mask;
+    one mask given for both sides is passed once."""
+    given = [m for m in (ref_mask, img_mask) if m is not None]
+    for m in given:
+        if m.device != dev:
+            raise ValueError(f"measure_window: mask on {m.device}, data on "
+                             f"{dev}")
+    f32 = any(m.dtype != torch.bool for m in given)
+
+    def conv(m):
+        if m is None:
+            return None
+        m = torch.broadcast_to(m, shape)
+        if f32:
+            return m.to(torch.float32).contiguous()
+        return m.contiguous().view(torch.uint8)
+
+    rm = conv(ref_mask)
+    im = rm if img_mask is ref_mask else conv(img_mask)
+    if (rm is None) != (im is None):  # the kernel takes both or none
+        ones = torch.ones(shape, dtype=torch.float32 if f32 else torch.uint8,
+                          device=dev)
+        rm, im = (ones, im) if rm is None else (rm, ones)
+    return rm, im, int(f32)
 
 
 def measure_window(ref: torch.Tensor, img: torch.Tensor,
@@ -92,8 +123,10 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors (``ref``/``img``
     contiguous float32 (B, H, W) on one device; masks of any type that
-    broadcast to that shape, or None) launch the kernel on the current
-    stream; anything else raises.
+    broadcast to that shape, or None; bool masks are read in place as
+    bytes) launch the kernel on the current stream; anything else raises.
+    Square 16, 32 and 64 cutouts take the FFT kernel, every
+    other shape the one-block-per-pair kernel (:func:`uses_fft_kernel`).
     """
     if cc_type not in ("CC", "NCC", "ZNCC"):
         raise ValueError(
@@ -119,8 +152,7 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
     if ny < 1 or nx < 1 or int(nwin) < 1 or int(usfac) < 1:
         raise ValueError(f"measure_window: empty search box {bounds} or "
                          f"window nwin={nwin}, usfac={usfac}")
-    rm = _mask(ref_mask, ref.shape, dev)
-    im = rm if img_mask is ref_mask else _mask(img_mask, ref.shape, dev)
+    rm, im, mask_f32 = _masks(ref_mask, img_mask, ref.shape, dev)
     if cc_type == "CC":
         mode = _CC
     else:
@@ -139,10 +171,10 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
 
     with torch.cuda.device(dev):
         rc = lib.measure_window_launch(
-            ref.data_ptr(), img.data_ptr(), ptr(rm), ptr(im), B, H, W, mode,
-            int(nwin), r0 - H // 2, c0 - W // 2, ny, nx, tw.data_ptr(),
-            k2y.data_ptr(), k2x.data_ptr(), ptr(ws), c2.data_ptr(),
-            s0y.data_ptr(), s0x.data_ptr(),
+            ref.data_ptr(), img.data_ptr(), ptr(rm), ptr(im), mask_f32, B,
+            H, W, mode, int(nwin), r0 - H // 2, c0 - W // 2, ny, nx,
+            tw.data_ptr(), k2y.data_ptr(), k2x.data_ptr(), ptr(ws),
+            c2.data_ptr(), s0y.data_ptr(), s0x.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"measure_window: kernel launch failed "

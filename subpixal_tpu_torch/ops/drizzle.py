@@ -18,8 +18,8 @@ import math
 
 import torch
 
-__all__ = ["drizzle_deposit", "drizzle_combine", "kernel_reach",
-           "DRIZZLE_KERNELS"]
+__all__ = ["drizzle_deposit", "drizzle_deposit_stack", "drizzle_combine",
+           "kernel_reach", "DRIZZLE_KERNELS"]
 
 #: supported deposit kernels (drizzlepac parity set)
 DRIZZLE_KERNELS = ("square", "turbo", "point", "gaussian",
@@ -135,6 +135,31 @@ def drizzle_deposit(in_data: torch.Tensor, in_wht: torch.Tensor | None,
             sci.index_add_(0, flat, wa * data)
             wht.index_add_(0, flat, wa)
     return sci[:-1].reshape(Ho, Wo), wht[:-1].reshape(Ho, Wo)
+
+
+def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
+                          x_out: torch.Tensor, y_out: torch.Tensor,
+                          out_shape: tuple[int, int], pixfrac: float = 1.0,
+                          pscale_ratio=(1.0,), kernel: str = "square"):
+    """Deposit a stack of E input planes onto one output grid.
+
+    ``in_data``/``in_wht``/``x_out``/``y_out`` are (E, H, W) (``in_wht``
+    may be None) and ``pscale_ratio`` holds one ratio per plane. Returns
+    ``(sci_acc, wht_acc)``: the sums over e = 0..E-1, in that order, of
+    :func:`drizzle_deposit` of each plane.
+    """
+    ratios = [float(r) for r in pscale_ratio]
+    if not ratios or len(ratios) != in_data.shape[0]:
+        raise ValueError(f"{len(ratios)} pscale ratios for "
+                         f"{in_data.shape[0]} planes")
+    sci = wht = None
+    for e, r in enumerate(ratios):
+        s, w = drizzle_deposit(in_data[e], None if in_wht is None
+                               else in_wht[e], x_out[e], y_out[e], out_shape,
+                               pixfrac=pixfrac, pscale_ratio=r, kernel=kernel)
+        sci = s if sci is None else sci + s
+        wht = w if wht is None else wht + w
+    return sci, wht
 
 
 def drizzle_combine(sci_acc: torch.Tensor, wht_acc: torch.Tensor,
