@@ -26,15 +26,19 @@ failure):
    and 2.0 for all seven kernels; the main path's stack of 8 × 1024² in
    one launch; and that stack compacted to (8, L·16, 128) block columns,
    as the sparse deposit stages it;
-4. B2: the blot gather kernel against its plain version on 512 cutouts
-   of 32², the shape the main path picks for its scene, for all six
-   interpolants;
+4. B2: the blot gather kernel against its plain version for all six
+   interpolants on 512 cutouts of 32² (the shape the main path picks for
+   its scene), 512 of 48² (the 48² path's) and 16 of 256² (the oversized
+   bucket's cap); the linear interpolant at 32² also beside
+   ``grid_sample``, the one PyTorch call that computes it at interior
+   points;
 5. B3: the measurement kernels against their plain version (the
-   ``torch.fft`` chain): the FFT kernel on 512 masked NCC
-   pairs of 32² at ``usfac`` 8 (the shape the new path picks) and on
-   ``bench.py``'s 500 unmasked NCC pairs of 64² at ``usfac`` 10; the
-   one-block-per-pair kernel on 16 masked pairs of 256² (the oversized
-   bucket's cap);
+   ``torch.fft`` chain), each route asserted: the FFT kernel on 512
+   masked NCC pairs of 32² at ``usfac`` 8 (the new path's shape) and on
+   ``bench.py``'s 500 unmasked NCC pairs of 64² at ``usfac`` 10, and the
+   mixed-radix kernel asked for on the same pairs; the mixed-radix kernel
+   on 512 masked pairs of 48² (the 48² path's), of 128²
+   (``max_cut_size``) and on 16 of 256² (the oversized bucket's cap);
 6. the defaults' path: ``align_images`` on an 8 x 1024², 60-star
    simulated stack for 4 iterations, with the kernels' launch counts set
    to 0 just before and read just after (B1 and B2 must have run, B1
@@ -47,16 +51,22 @@ failure):
    configuration (``bench.py``'s align smoke: shift fit, ``usfac`` 8,
    Gaussian peak), whose 'auto' settings on the card take device
    pixmaps and the sparse deposit; B1, B2 and B3 must all have run, with
-   the same checks and a second, warm call.
+   the same checks and a second, warm call;
+8. the 48² path: the same configuration on the same scene with broader
+   stars (sigma 3.0 px), whose footprints make the auto-sizing pick 48²
+   cutouts; B3 must measure 512 pairs of 48² each iteration through the
+   mixed-radix kernel, with the same checks as phase 7.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
 wrapper's allocations included); ``device_us``, the kernel's own device
-time per launch from ``torch.profiler`` over 20 back-to-back calls; and
-``plain_ms`` for the plain version. Each bound is the larger of the bytes
-the function must move (each input read once, each output written once)
-over 3.35 TB/s and the f32 operations it does on these inputs over 67
-TFLOP/s (the H100 SXM's published rates). The line before the last is
+time per launch from ``torch.profiler`` over 20 back-to-back calls, each
+on another copy of the inputs (copies that together exceed twice the L2,
+so the inputs come from device memory); and ``plain_ms`` for the plain
+version. Each bound is the larger of the bytes the function must move
+(each input read once, each output written once; for B2 only the image
+pixels its footprints cover) over 3.35 TB/s and the f32 operations it
+does on these inputs over 67 TFLOP/s (the H100 SXM's published rates). The line before the last is
 the card's name and power limit as ``nvidia-smi`` reports them; the one
 before it is a JSON record of every kernel and shape. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +74,8 @@ before it is a JSON record of every kernel and shape. The last line is
 
 from __future__ import annotations
 
+import inspect
+import itertools
 import json
 import statistics
 import subprocess
@@ -79,6 +91,12 @@ import numpy as np
 #: fused multiply-adds (B1, B2) change the order and rounding of the sums
 REL_TOL = 1e-5
 
+#: grid_sample, the yardstick for B2's linear interpolant, takes the
+#: coordinates normalised to [-1, 1] and back: f32 rounding moves a point
+#: by up to ~3e-5 px on a 1024² frame, which on the stars' slopes is above
+#: REL_TOL; this bound only shows that it computes the same function
+LIBRARY_TOL = 1e-4
+
 #: B3's window is compared relative to its largest value: the kernels sum
 #: their own FFTs or direct DFTs where the plain version runs torch.fft
 #: (the JAX package holds its own fused kernel to its XLA path with the
@@ -88,6 +106,8 @@ C2_TOL = 5e-4
 #: published H100 SXM rates: device-memory bytes/s, f32 (non-tensor) FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+#: the H100 SXM's L2 cache
+L2_BYTES = 50 * 2 ** 20
 
 
 def bound(nbytes, flops):
@@ -123,10 +143,27 @@ def cuda_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
+def rotating(call, *args):
+    """A function of no arguments that calls ``call`` on a new copy of
+    ``args`` (tensors) each time, cycling over enough copies that their
+    bytes together exceed twice the L2 cache: each launch then reads its
+    inputs from device memory, as the bound assumes, not from L2."""
+    import torch
+
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    k = max(1, -(-2 * L2_BYTES // max(nbytes, 1)))
+    copies = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args) for _ in range(k - 1)]
+    it = itertools.cycle(copies)
+    return lambda: call(*next(it))
+
+
 def device_us(fn, key, reps=20):
     """Device microseconds per launch of the kernels whose name holds
     ``key``, from ``torch.profiler`` over ``reps`` back-to-back calls of
-    ``fn`` (after one warm-up call)."""
+    ``fn`` (after one warm-up call); pass a :func:`rotating` ``fn`` to
+    time launches that read their inputs from device memory."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,8 +243,8 @@ def _b1_time(t, oshape, ratios, label):
 
     args = (t["d"], t["w"], t["x"], t["y"], oshape)
     ms = cuda_ms(lambda: drizzle_deposit_stack(*args, pscale_ratio=ratios))
-    dev_us = device_us(lambda: drizzle_deposit_stack(
-        *args, pscale_ratio=ratios), "deposit_tiles")
+    dev_us = device_us(rotating(lambda *a: drizzle_deposit_stack(
+        *a, pscale_ratio=ratios), *args), "deposit_tiles")
     plain_ms = cuda_ms(lambda: plain(*args, pscale_ratio=ratios), reps=5,
                        warmup=1)
     # data, weight, x, y read; sci, wht written; ~20 flops for each of
@@ -275,61 +312,130 @@ def phase_b1(dev):
     return times
 
 
+def _b2_inputs(dev, B, n, seed, rot=0.2, shape=(1024, 1024)):
+    """A 1024² frame of 200 stars and B (n, n) cutout grids: centers over
+    the whole frame (edge cutouts go partly invalid), a rotation of
+    ``rot`` degrees and a fractional offset per cutout."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    image = rng.normal(0.0, 0.01, (H, W))
+    yy, xx = np.mgrid[0:H, 0:W]
+    for cx, cy in rng.uniform(0, W, (200, 2)):
+        image += 25.0 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 6.48)
+    th = np.deg2rad(rot)
+    gy, gx = np.mgrid[0:n, 0:n].astype(np.float64)
+    cen = rng.uniform(-8, W + 8, (B, 2))
+    off = rng.uniform(-0.5, 0.5, (B, 2))
+    x = (np.cos(th) * gx - np.sin(th) * gy)[None] + (cen[:, 0] + off[:, 0]
+                                                      - n / 2)[:, None, None]
+    y = (np.sin(th) * gx + np.cos(th) * gy)[None] + (cen[:, 1] + off[:, 1]
+                                                      - n / 2)[:, None, None]
+    return (torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (image, x, y))
+
+
+def _b2_bound(img, x, y, interp):
+    """Bound of one gather: the image pixels the footprints need (the
+    union of each cutout's footprint bounding box, clipped to the image),
+    x and y read, values (f32) and validity (bytes) written; per output
+    taps² multiply-adds and two axes of Lagrange weights in product form
+    (~5 operations a tap). Returns (ms, by, image pixels counted)."""
+    from subpixal_tpu_torch.ops.interp import INTERP_OFFSETS
+
+    offs = INTERP_OFFSETS[interp]
+    H, W = img.shape
+    fx = x.floor().flatten(1)
+    fy = y.floor().flatten(1)
+    x0 = (fx.amin(1) + offs[0]).clamp(0, W).long().tolist()
+    x1 = (fx.amax(1) + offs[-1] + 1).clamp(0, W).long().tolist()
+    y0 = (fy.amin(1) + offs[0]).clamp(0, H).long().tolist()
+    y1 = (fy.amax(1) + offs[-1] + 1).clamp(0, H).long().tolist()
+    cover = np.zeros((H, W), dtype=bool)
+    for b in range(len(x0)):
+        cover[y0[b]:y1[b], x0[b]:x1[b]] = True
+    npix, n, taps = int(cover.sum()), x.numel(), len(offs)
+    ms, by = bound(4 * npix + 8 * n + 5 * n,
+                   n * (2 * taps * taps + 2 * 5 * taps))
+    return ms, by, npix
+
+
+def _grid_sample_linear(img, x, y):
+    """One PyTorch call computing the linear interpolant at interior
+    points: grid_sample, bilinear, align_corners (pixel centers at -1, 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    H, W = img.shape
+    grid = torch.stack([2.0 * x / (W - 1) - 1.0, 2.0 * y / (H - 1) - 1.0],
+                       dim=-1).reshape(1, -1, x.shape[-1], 2)
+    return F.grid_sample(img[None, None], grid, mode="bilinear",
+                         align_corners=True)[0, 0]
+
+
 def phase_b2(dev):
-    """Gather kernel vs plain version on 512 cutouts of 32²."""
+    """Gather kernel vs plain version: all six interpolants on 512
+    cutouts of 32² and of 48² and on the 16 x 256² bucket; times at poly5
+    (and linear at 32², beside grid_sample)."""
     import torch
 
     from subpixal_tpu_torch.kernels.blot import sample_cutouts
     from subpixal_tpu_torch.ops.interp import INTERP_TAPS, sample_image
 
-    rng = np.random.default_rng(2)
-    H = W = 1024
-    B, h, w = 512, 32, 32
-    image = rng.normal(0.0, 0.01, (H, W))
-    yy, xx = np.mgrid[0:H, 0:W]
-    for cx, cy in rng.uniform(0, W, (200, 2)):
-        image += 25.0 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 6.48)
-    # cutout grids: centers over the whole frame (edge cutouts go partly
-    # invalid), a small rotation and a fractional offset per cutout
-    th = np.deg2rad(0.2)
-    gy, gx = np.mgrid[0:h, 0:w].astype(np.float64)
-    cen = rng.uniform(-8, W + 8, (B, 2))
-    off = rng.uniform(-0.5, 0.5, (B, 2))
-    x = (np.cos(th) * gx - np.sin(th) * gy)[None] + (cen[:, 0] + off[:, 0]
-                                                      - w / 2)[:, None, None]
-    y = (np.sin(th) * gx + np.cos(th) * gy)[None] + (cen[:, 1] + off[:, 1]
-                                                      - h / 2)[:, None, None]
-    img_t = torch.tensor(image, dtype=torch.float32, device=dev)
-    x_t = torch.tensor(x, dtype=torch.float32, device=dev)
-    y_t = torch.tensor(y, dtype=torch.float32, device=dev)
-    worst_abs = 0.0
-    for interp in INTERP_TAPS:
-        v, ok, esc = sample_cutouts(img_t, x_t, y_t, interp=interp)
-        pv, pok = sample_image(img_t, x_t, y_t, interp=interp)
-        torch.cuda.synchronize()
-        r, a = _rel_err(v, pv)
-        same_valid = bool(torch.equal(ok, pok))
-        print(f"B2 {interp:8s}: rel err {r:.2e}, validity equal "
-              f"{same_valid} ({float(ok.float().mean()):.3f} valid), "
-              f"escaped {int(esc.sum())}")
-        if not (r <= REL_TOL and same_valid) or int(esc.sum()) != 0:
-            raise AssertionError(f"B2 {interp} disagrees with the plain "
-                                 "version")
-        worst_abs = max(worst_abs, a)
-    ms = cuda_ms(lambda: sample_cutouts(img_t, x_t, y_t))
-    dev_us = device_us(lambda: sample_cutouts(img_t, x_t, y_t),
-                       "gather_kernel")
-    plain_ms = cuda_ms(lambda: sample_image(img_t, x_t, y_t))
-    # image, x, y read; values (f32) and validity (bytes) written; per
-    # output 6x6 multiply-adds and 2 x 6 Lagrange weights of 15 flops
-    n = B * h * w
-    bound_ms, by = bound(4 * H * W + 8 * n + 5 * n, n * (2 * 36 + 180))
-    print(f"B2 poly5 on 512 x 32²: wrapper {ms:.4f} ms, device "
-          f"{dev_us:.3f} us per launch, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by})")
-    return [dict(shape="512 x 32², poly5", max_abs_err=worst_abs, ms=ms,
-                 device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=by)]
+    out = []
+    for B, n, seed in ((512, 32, 2), (512, 48, 4), (16, 256, 6)):
+        img_t, x_t, y_t = _b2_inputs(dev, B, n, seed)
+        H, W = img_t.shape
+        worst_abs = 0.0
+        for interp in INTERP_TAPS:
+            v, ok, esc = sample_cutouts(img_t, x_t, y_t, interp=interp)
+            pv, pok = sample_image(img_t, x_t, y_t, interp=interp)
+            torch.cuda.synchronize()
+            r, a = _rel_err(v, pv)
+            same_valid = bool(torch.equal(ok, pok))
+            print(f"B2 {B} x {n}² {interp:8s}: rel err {r:.2e}, validity "
+                  f"equal {same_valid} ({float(ok.float().mean()):.3f} "
+                  f"valid), escaped {int(esc.sum())}")
+            if not (r <= REL_TOL and same_valid) or int(esc.sum()) != 0:
+                raise AssertionError(f"B2 {B} x {n}² {interp} disagrees "
+                                     "with the plain version")
+            worst_abs = max(worst_abs, a)
+        timed = ["poly5"] + (["linear"] if n == 32 else [])
+        for interp in timed:
+            def call():
+                return sample_cutouts(img_t, x_t, y_t, interp=interp)
+
+            ms = cuda_ms(call)
+            dev_us = device_us(rotating(
+                lambda *a: sample_cutouts(*a, interp=interp), img_t, x_t,
+                y_t), "gather_kernel")
+            plain_ms = cuda_ms(lambda: sample_image(img_t, x_t, y_t,
+                                                    interp=interp))
+            library_ms = None
+            if interp == "linear":
+                # grid_sample computes the same value where the footprint
+                # lies inside the image (elsewhere it pads with zeros)
+                v, ok, _ = call()
+                gs = _grid_sample_linear(img_t, x_t, y_t).reshape(v.shape)
+                r, _ = _rel_err(gs[ok], v[ok])
+                print(f"B2 {B} x {n}² linear vs grid_sample on the "
+                      f"{int(ok.sum())} interior points: rel err {r:.2e}")
+                if not r <= LIBRARY_TOL:
+                    raise AssertionError("grid_sample disagrees with B2")
+                library_ms = cuda_ms(
+                    lambda: _grid_sample_linear(img_t, x_t, y_t))
+            bound_ms, by, npix = _b2_bound(img_t, x_t, y_t, interp)
+            print(f"B2 {B} x {n}², {interp}: wrapper {ms:.4f} ms, device "
+                  f"{dev_us:.3f} us per launch, plain {plain_ms:.4f} ms, "
+                  f"library {library_ms}, bound {bound_ms:.4f} ms ({by}; "
+                  f"{npix} of {H * W} image pixels needed; "
+                  f"{bound_ms * 1e3 / dev_us:.1%} of it reached)")
+            out.append(dict(shape=f"{B} x {n}², {interp}",
+                            max_abs_err=worst_abs, ms=ms, device_us=dev_us,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=by, library_ms=library_ms))
+    return out
 
 
 def _b3_flops(B, H, W, nwin, ny, nx):
@@ -373,38 +479,57 @@ def phase_b3(dev):
     """Both measurement kernels vs the plain torch.fft chain."""
     import torch
 
-    from subpixal_tpu_torch.kernels.measure import (measure_window,
-                                                    uses_fft_kernel)
+    from subpixal_tpu_torch.kernels.measure import (kernel_route,
+                                                    measure_window)
     from subpixal_tpu_torch.ops.correlate import measure_window as plain
     from subpixal_tpu_torch.ops.peaks import normalize_search_box
 
     out = []
-    for label, B, n, usfac, masked, sigma, seed in (
-            ("512 x 32², masked NCC, usfac 8", 512, 32, 8, True, 1.6, 3),
+    # (label, B, n, usfac, masked, sigma, seed, the route taken, and the
+    # kernel asked for: None picks by shape; the mixed-radix kernel asked
+    # for at 32² and 64² times it beside the FFT kernel on the same pairs)
+    for label, B, n, usfac, masked, sigma, seed, route, ask in (
+            ("512 x 32², masked NCC, usfac 8", 512, 32, 8, True, 1.6, 3,
+             "fft", None),
+            ("512 x 32², masked NCC, usfac 8", 512, 32, 8, True, 1.6, 3,
+             "mixed_radix", "mixed_radix"),
             ("500 x 64², unmasked NCC, usfac 10", 500, 64, 10, False, 2.0,
-             0),
-            ("16 x 256², masked NCC, usfac 8", 16, 256, 8, True, 1.6, 7)):
+             0, "fft", None),
+            ("500 x 64², unmasked NCC, usfac 10", 500, 64, 10, False, 2.0,
+             0, "mixed_radix", "mixed_radix"),
+            ("512 x 48², masked NCC, usfac 8", 512, 48, 8, True, 3.0, 5,
+             "mixed_radix", None),
+            ("512 x 128², masked NCC, usfac 8", 512, 128, 8, True, 3.0, 9,
+             "mixed_radix", None),
+            ("16 x 256², masked NCC, usfac 8", 16, 256, 8, True, 1.6, 7,
+             "mixed_radix", None)):
         ref, img, m = _b3_inputs(dev, B, n, 0.45, sigma, masked, seed)
         bounds = normalize_search_box("fitbox", n, n, 5)
         nwin = -(-(usfac + 5 + 1) // 8) * 8
         ny, nx = bounds[1] - bounds[0], bounds[3] - bounds[2]
-        which = ("FFT" if uses_fft_kernel(n, n, nwin, ny)
-                 else "one-block-per-pair")
+        rt = kernel_route(B, n, n, nwin, bounds, kernel=ask)
+        if rt.kernel != route:
+            raise AssertionError(f"B3 {label} takes {rt}, expected {route}")
+        which = (f"{rt.kernel}{' asked for' if ask else ''}, {rt.cluster} "
+                 "CTAs a pair" + (", global workspace" if rt.workspace
+                                  else ""))
         kw = dict(cc_type="NCC", usfac=usfac, nwin=nwin, bounds=bounds)
-        c2, sy, sx = measure_window(ref, img, m, m, **kw)
+        c2, sy, sx = measure_window(ref, img, m, m, kernel=ask, **kw)
         pc2, psy, psx = plain(ref, img, m, m, **kw)
         torch.cuda.synchronize()
         err = float((c2 - pc2).abs().max())
         scale = float(pc2.abs().max())
         same_s0 = bool(torch.equal(sy, psy) and torch.equal(sx, psx))
-        print(f"B3 {label} ({which} kernel): max |C2 - plain| {err:.3e} "
+        print(f"B3 {label} ({which}): max |C2 - plain| {err:.3e} "
               f"({err / scale:.2e} of max |C2|), s0 equal {same_s0}")
         if not (err <= C2_TOL * scale and same_s0):
             raise AssertionError(f"B3 {label} disagrees with the plain "
                                  "version")
-        ms = cuda_ms(lambda: measure_window(ref, img, m, m, **kw))
-        dev_us = device_us(lambda: measure_window(ref, img, m, m, **kw),
-                           "measure")
+        def call(r, i, mk):
+            return measure_window(r, i, mk, mk, kernel=ask, **kw)
+
+        ms = cuda_ms(lambda: call(ref, img, m))
+        dev_us = device_us(rotating(call, ref, img, m), "measure")
         plain_ms = cuda_ms(lambda: plain(ref, img, m, m, **kw))
         # ref, img (f32) and the shared bool mask read; C2, s0 written
         nbytes = B * (n * n * (8 + masked) + 4 * nwin * nwin + 8)
@@ -414,7 +539,7 @@ def phase_b3(dev):
               f"({by}, {bound_ms * 1e3 / dev_us:.1%} of it reached)")
         out.append(dict(shape=f"{label} ({which})", max_abs_err=err, ms=ms,
                         device_us=dev_us, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=by))
+                        bound_ms=bound_ms, bound_by=by, library_ms=None))
     return out
 
 
@@ -448,11 +573,14 @@ def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False):
                               device=x.device)
 
 
-def phase_align(dev, label, expect, **config):
-    """align_images on 8 x 1024², 60 stars, 4 iterations, on the card.
+def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
+    """align_images on 8 x 1024², 60 stars of width ``sigma``, 4
+    iterations, on the card.
 
-    ``expect`` names the kernels this path must launch. Returns the
-    launch counts of the first call."""
+    ``expect`` names the kernels this path must launch; ``measured`` is
+    None or ((B, H, W), route): the batch B3 must measure each iteration
+    and the route it must take. Returns the launch counts of the first
+    call."""
     import torch
 
     from subpixal_tpu_torch import align as align_mod
@@ -464,15 +592,33 @@ def phase_align(dev, label, expect, **config):
                                             simulate_stack)
 
     exps, planted = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
-                                   seed=11)
+                                   seed=11, sigma=sigma)
     kw = dict(exposures=exps, device=dev, eps_shift=1e-7, **config)
+    seen = []
+    kernel_measure = align_mod.measure_window
+
+    def spy(ref, *a, **k):  # the batches the loop hands to B3
+        seen.append((tuple(ref.shape), k["nwin"], tuple(k["bounds"])))
+        return kernel_measure(ref, *a, **k)
+
     kernels.reset_launch_counts()
     t0 = time.time()
-    res = align_images(max_iterations=4, **kw)
+    with mock.patch.object(align_mod, "measure_window", spy):
+        res = align_images(max_iterations=4, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     print(f"{label}: launches {launches}, wall {wall:.2f} s")
+    if measured is not None:
+        from subpixal_tpu_torch.kernels.measure import kernel_route
+
+        shape, route = measured
+        routes = {kernel_route(*sh, nwin, bo) for sh, nwin, bo in seen}
+        print(f"{label}: B3 batches {sorted(set(seen))}, routes {routes}")
+        if {sh for sh, _, _ in seen} != {shape} or \
+                {r.kernel for r in routes} != {route}:
+            raise AssertionError(f"{label}: B3 measured {seen[:2]} by "
+                                 f"{routes}, expected {shape} by {route}")
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
@@ -522,13 +668,16 @@ def phase_align(dev, label, expect, **config):
 def profile_redrizzle(dev) -> None:
     """``--profile``: device time of one iteration's re-drizzle as the
     imported package's align step runs it (the 8 x 1024² stack, square,
-    pixfrac 1: pixmap affine, deposit, combine), and of B1 and B3 per
-    launch at the main path's shapes."""
+    pixfrac 1: pixmap affine, deposit, combine), and of B1, B2 and B3 per
+    launch at the align paths' shapes (32², 48²) and the bucket's 256²
+    (B3 also at 64² and 128², and its mixed-radix kernel asked for at 32²
+    and 64²)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from subpixal_tpu_torch import align as align_mod
     from subpixal_tpu_torch.kernels import drizzle as kdriz
+    from subpixal_tpu_torch.kernels.blot import sample_cutouts
     from subpixal_tpu_torch.kernels.measure import measure_window
     from subpixal_tpu_torch.ops.drizzle import drizzle_combine
     from subpixal_tpu_torch.ops.peaks import normalize_search_box
@@ -582,13 +731,31 @@ def profile_redrizzle(dev) -> None:
           f"operations, of which B1 {b1 / reps:.3f} us")
     one = {k: v[0] for k, v in t.items()}
     print("B1 1024², square, pixfrac 1: %.3f us per launch" % device_us(
-        lambda: kdriz.drizzle_deposit(one["d"], one["w"], one["x"],
-                                      one["y"], oshape), "deposit"))
-    ref, img, m = _b3_inputs(dev, 512, 32, 0.45, 1.6, True, 3)
-    kw = dict(cc_type="NCC", usfac=8, nwin=16,
-              bounds=normalize_search_box("fitbox", 32, 32, 5))
-    print("B3 512 x 32², masked NCC, usfac 8: %.3f us per launch" % device_us(
-        lambda: measure_window(ref, img, m, m, **kw), "measure"))
+        rotating(lambda *a: kdriz.drizzle_deposit(*a, oshape), one["d"],
+                 one["w"], one["x"], one["y"]), "deposit"))
+    for B, n, seed in ((512, 32, 2), (512, 48, 4), (16, 256, 6)):
+        img_t, x_t, y_t = _b2_inputs(dev, B, n, seed)
+        print("B2 %d x %d², poly5: %.3f us per launch" % (B, n, device_us(
+            rotating(sample_cutouts, img_t, x_t, y_t), "gather_kernel")))
+    # the mixed-radix kernel asked for where the FFT kernel takes the
+    # shape, when the imported package can be asked
+    asks = [None] + (["mixed_radix"] if "kernel" in inspect.signature(
+        measure_window).parameters else [])
+    for B, n, sigma, seed in ((512, 32, 1.6, 3), (500, 64, 2.0, 0),
+                              (512, 48, 3.0, 5), (512, 128, 3.0, 9),
+                              (16, 256, 1.6, 7)):
+        ref, img, m = _b3_inputs(dev, B, n, 0.45, sigma, True, seed)
+        kw = dict(cc_type="NCC", usfac=8, nwin=16,
+                  bounds=normalize_search_box("fitbox", n, n, 5))
+        for ask in asks if n in (32, 64) else [None]:
+            extra = {} if ask is None else {"kernel": ask}
+
+            def call(r, i, mk):
+                return measure_window(r, i, mk, mk, **kw, **extra)
+
+            print("B3 %d x %d², masked NCC, usfac 8%s: %.3f us per launch"
+                  % (B, n, f", {ask} asked for" if ask else "",
+                     device_us(rotating(call, ref, img, m), "measure")))
 
 
 def profile_paths(dev) -> None:
@@ -601,11 +768,12 @@ def profile_paths(dev) -> None:
     from subpixal_tpu_torch.align import align_images
     from subpixal_tpu_torch.testing import simulate_stack
 
-    exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
-                             seed=11)
-    for label, config in (("defaults' path", {}),
-                          ("new path", dict(fitgeom="shift", usfac=8,
-                                            fit_type="gaussian"))):
+    new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
+    for label, sigma, config in (("defaults' path", 1.8, {}),
+                                 ("new path", 1.8, new),
+                                 ("48² path", 3.0, new)):
+        exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                                 seed=11, sigma=sigma)
         kw = dict(exposures=exps, device=dev, eps_shift=1e-7,
                   max_iterations=4, **config)
         align_images(**kw)
@@ -677,6 +845,10 @@ def main() -> int:
         "align_usfac8": phase_align(
             dev, "new path", tuple(kernels.LAUNCHES), fitgeom="shift",
             usfac=8, fit_type="gaussian"),
+        "align_usfac8_48": phase_align(
+            dev, "48² path", tuple(kernels.LAUNCHES), sigma=3.0,
+            measured=((512, 48, 48), "mixed_radix"), fitgeom="shift",
+            usfac=8, fit_type="gaussian"),
     }
 
     def entries(name, source, replaces, shapes):
@@ -687,7 +859,7 @@ def main() -> int:
                  "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                  "device_us": k["device_us"], "plain_ms": k["plain_ms"],
                  "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                 "library_ms": None, "at": k["shape"],
+                 "library_ms": k.get("library_ms"), "at": k["shape"],
                  "launches_by_path": {p: c[name]
                                       for p, c in by_path.items()}}
                 for k in shapes]

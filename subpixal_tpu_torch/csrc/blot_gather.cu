@@ -8,9 +8,9 @@
 // on the MXU. Hopper gathers through its caches, so the matrix form has no
 // reason to exist here.
 //
-// Design: one thread per output pixel of the flattened (B, h, w) batch.
-// Each thread takes floor and fraction of its coordinate per axis, the
-// per-axis tap weights by the formulas of
+// Design: one thread per output pixel of the flattened (B, h, w) batch,
+// grid-stride. Each thread takes floor and fraction of its coordinate per
+// axis, the per-axis tap weights by the formulas of
 // subpixal_tpu_torch/ops/interp.py · _axis_weights (the plain version),
 // and reads its K x K footprint through __ldg. It writes the value, or
 // `fill`, and a validity byte: valid means the whole footprint lies inside
@@ -19,14 +19,24 @@
 // B-spline coefficients; the prefilter stays plain torch outside the
 // kernel, as the JAX package runs it as XLA outside Pallas.
 //
-// What bounds it on this card: per output pixel it reads 8 bytes of
-// coordinates and K*K = 36 image values at poly5, and writes 5 bytes. The
-// footprints of neighbouring pixels overlap almost entirely and a cutout's
-// source window is a few KB, so the reads hit L1/L2; the bound is the
-// load-issue rate of the 36 gathers and the tap arithmetic, not device
-// memory. The design keeps the footprint loads in consecutive threads on
-// consecutive columns; staging each cutout's window in shared memory is
-// the later step if the gather shows up in the iteration time.
+// Weights: the Lagrange basis (poly3, poly5) in product form,
+// w_i = c_i * prod_{j != i} (t - o_j), from prefix and suffix products and
+// the constant reciprocals c_i = 1 / prod_{j != i} (i - j), built at
+// compile time: a divide per factor cannot become a multiply under IEEE
+// rules, and dividing once per factor cost about two dozen divides per
+// output, a third of the gather's time. Lanczos takes one reciprocal of
+// its tap sum, the B-spline a multiply by 1/6.
+//
+// What bounds it on this card: the L1 load rate of the footprints. Per
+// output pixel it reads 8 bytes of coordinates, writes 5, and gathers
+// K*K = 36 taps at poly5; neighbouring pixels' footprints overlap almost
+// entirely, so the taps hit L1, and 36 warp-wide loads per 32 outputs are
+// about the time the kernel takes beyond the linear interpolant's 4 taps.
+// Staging each cutout's window in shared memory first (one CTA per tile,
+// a bounding-box reduction, cp.async row copies, then the taps from shared
+// memory) was slower at every shape measured on the H100: L1 and shared
+// memory are the same SRAM on Hopper, so staging only adds a serial
+// load, reduce, copy and barrier chain to every tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,12 +54,29 @@ enum : int {
   I_SINC = 5,
 };
 
+constexpr int kThreads = 256;
+
 template <int I> struct Taps;
 template <> struct Taps<I_LINEAR> { static constexpr int LO = 0, N = 2; };
 template <> struct Taps<I_POLY3> { static constexpr int LO = -1, N = 4; };
 template <> struct Taps<I_POLY5> { static constexpr int LO = -2, N = 6; };
 template <> struct Taps<I_SPLINE3> { static constexpr int LO = -1, N = 4; };
 template <> struct Taps<I_SINC> { static constexpr int LO = -2, N = 6; };
+
+// c_i = 1 / prod_{j != i} (i - j), the Lagrange basis' constants on N
+// taps, built at compile time (a constexpr variable must be)
+template <int N>
+struct LagrangeC {
+  float c[N];
+  __host__ __device__ constexpr LagrangeC() : c{} {
+    for (int i = 0; i < N; ++i) {
+      double p = 1.0;
+      for (int j = 0; j < N; ++j)
+        if (j != i) p *= (double)(i - j);
+      c[i] = (float)(1.0 / p);
+    }
+  }
+};
 
 __device__ __forceinline__ float lanczos3(float x) {
   // sinc(x) * sinc(x / 3) on |x| < 3 (the plain version's sinscl = 1)
@@ -62,17 +89,18 @@ __device__ __forceinline__ float lanczos3(float x) {
 }
 
 template <int I>
-__device__ __forceinline__ void axis_weights(float t, float* w) {
+__device__ __forceinline__ void axis_weights(float t, float (&w)[Taps<I>::N]) {
   constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
   if constexpr (I == I_LINEAR) {
     w[0] = 1.0f - t;
     w[1] = t;
   } else if constexpr (I == I_SPLINE3) {  // cubic B-spline basis, offsets -1..2
+    constexpr float k6 = 1.0f / 6.0f;
     const float t2 = t * t, t3 = t2 * t;
-    w[0] = (1.0f - 3.0f * t + 3.0f * t2 - t3) / 6.0f;
-    w[1] = (4.0f - 6.0f * t2 + 3.0f * t3) / 6.0f;
-    w[2] = (1.0f + 3.0f * t + 3.0f * t2 - 3.0f * t3) / 6.0f;
-    w[3] = t3 / 6.0f;
+    w[0] = (1.0f - 3.0f * t + 3.0f * t2 - t3) * k6;
+    w[1] = (4.0f - 6.0f * t2 + 3.0f * t3) * k6;
+    w[2] = (1.0f + 3.0f * t + 3.0f * t2 - 3.0f * t3) * k6;
+    w[3] = t3 * k6;
   } else if constexpr (I == I_SINC) {  // Lanczos-3, normalised over the taps
     float s = 0.0f;
 #pragma unroll
@@ -86,19 +114,23 @@ __device__ __forceinline__ void axis_weights(float t, float* w) {
       w[-LO] = 1.0f - t;
       w[-LO + 1] = t;
     } else {
+      const float inv = 1.0f / s;
 #pragma unroll
-      for (int i = 0; i < N; ++i) w[i] = w[i] / s;
+      for (int i = 0; i < N; ++i) w[i] *= inv;
     }
   } else {  // Lagrange basis over offsets LO .. LO+N-1 (poly3, poly5)
+    constexpr LagrangeC<N> kC;
+    float d[N], pre[N], suf[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float wi = 1.0f;
+    for (int j = 0; j < N; ++j) d[j] = t - (float)(LO + j);
+    pre[0] = 1.0f;
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        if (j != i) wi = wi * (t - (float)(LO + j)) / (float)(i - j);
-      }
-      w[i] = wi;
-    }
+    for (int i = 1; i < N; ++i) pre[i] = pre[i - 1] * d[i - 1];
+    suf[N - 1] = 1.0f;
+#pragma unroll
+    for (int i = N - 2; i >= 0; --i) suf[i] = suf[i + 1] * d[i + 1];
+#pragma unroll
+    for (int i = 0; i < N; ++i) w[i] = kC.c[i] * (pre[i] * suf[i]);
   }
 }
 
@@ -119,25 +151,27 @@ __global__ void nearest_kernel(const float* __restrict__ img, int H, int W,
   }
 }
 
+// Whether the K x K footprint at floors (x0, y0) lies in the image; the
+// float test also rejects NaN and keeps the int casts in range.
 template <int I>
-__global__ void gather_kernel(const float* __restrict__ img, int H, int W,
-                              const float* __restrict__ xs,
-                              const float* __restrict__ ys, long long n,
-                              float* __restrict__ out,
-                              uint8_t* __restrict__ valid, float fill) {
+__device__ __forceinline__ bool inside(float x0, float y0, int H, int W) {
+  constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
+  return x0 + (float)LO >= 0.0f && x0 + (float)(LO + N - 1) < (float)W &&
+         y0 + (float)LO >= 0.0f && y0 + (float)(LO + N - 1) < (float)H;
+}
+
+template <int I>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const float* __restrict__ img, int H, int W, const float* __restrict__ xs,
+              const float* __restrict__ ys, long long n, float* __restrict__ out,
+              uint8_t* __restrict__ valid, float fill) {
   constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float x = __ldg(xs + i);
-    const float y = __ldg(ys + i);
-    const float x0 = floorf(x);
-    const float y0 = floorf(y);
-    // the footprint rows/cols x0+LO .. x0+LO+N-1 must lie in the image;
-    // the float test also rejects NaN and keeps the casts below in range
-    const bool ok = x0 + (float)LO >= 0.0f && x0 + (float)(LO + N - 1) < (float)W &&
-                    y0 + (float)LO >= 0.0f && y0 + (float)(LO + N - 1) < (float)H;
-    if (!ok) {
+    const float x = __ldg(xs + i), y = __ldg(ys + i);
+    const float x0 = floorf(x), y0 = floorf(y);
+    if (!inside<I>(x0, y0, H, W)) {
       out[i] = fill;
       valid[i] = 0;
       continue;
@@ -145,13 +179,13 @@ __global__ void gather_kernel(const float* __restrict__ img, int H, int W,
     float wx[N], wy[N];
     axis_weights<I>(x - x0, wx);
     axis_weights<I>(y - y0, wy);
-    const float* base = img + ((long long)y0 + LO) * W + ((long long)x0 + LO);
+    const float* p = img + ((long long)y0 + LO) * W + ((long long)x0 + LO);
     float acc = 0.0f;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       float row = 0.0f;
 #pragma unroll
-      for (int c = 0; c < N; ++c) row = row + wx[c] * __ldg(base + (long long)r * W + c);
+      for (int c = 0; c < N; ++c) row = row + wx[c] * __ldg(p + (long long)r * W + c);
       acc = acc + wy[r] * row;
     }
     out[i] = acc;
@@ -164,34 +198,33 @@ __global__ void gather_kernel(const float* __restrict__ img, int H, int W,
 // Sample `img` (H, W) at the n points (xs, ys) on `stream`; writes out[n]
 // and valid[n] (0/1 bytes). Returns cudaGetLastError(); an unknown
 // interpolant code returns cudaErrorInvalidValue without launching.
-extern "C" int blot_gather_launch(const float* img, int H, int W,
-                                  const float* xs, const float* ys,
-                                  long long n, float* out, uint8_t* valid,
+extern "C" int blot_gather_launch(const float* img, int H, int W, const float* xs,
+                                  const float* ys, long long n, float* out, uint8_t* valid,
                                   int interp, float fill, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
+  long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132LL * 16) blocks = 132LL * 16;  // grid-stride beyond this
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned g = (unsigned)blocks;
   switch (interp) {
     case I_NEAREST:
-      nearest_kernel<<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      nearest_kernel<<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
       break;
     case I_LINEAR:
-      gather_kernel<I_LINEAR><<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      gather_kernel<I_LINEAR><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
       break;
     case I_POLY3:
-      gather_kernel<I_POLY3><<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      gather_kernel<I_POLY3><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
       break;
     case I_POLY5:
-      gather_kernel<I_POLY5><<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      gather_kernel<I_POLY5><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
       break;
     case I_SPLINE3:
-      gather_kernel<I_SPLINE3><<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      gather_kernel<I_SPLINE3><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid,
+                                                       fill);
       break;
     case I_SINC:
-      gather_kernel<I_SINC><<<g, threads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      gather_kernel<I_SINC><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
       break;
     default:
       return (int)cudaErrorInvalidValue;

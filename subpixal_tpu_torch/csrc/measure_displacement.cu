@@ -29,361 +29,102 @@
 //      in K2x).
 // Every twiddle comes from cos/sin(2*pi*j/N) tables built in float64 and
 // cast to f32, indexed by an exact integer, so the integer part of every
-// phase is exact, as the reference's int32 reduction makes it.
+// phase is exact, as the reference's int32 reduction makes it. Both sides
+// go through ONE complex 2-D FFT, z = a_ref + i*a_img, and the half-spectra
+// split by hermitian symmetry, R = (Z[k] + conj Z[-k]) / 2 and
+// I = (Z[k] - conj Z[-k]) / 2i.
 //
-// What bounds it on this card: bytes. With FFT half-spectra a 32 x 32
-// pair needs about 0.2 MFLOP against 10 KB of inputs (ref, img, a bool
-// mask) and 1 KB of window, below the card's f32 ridge point (67 TFLOP/s
-// over 3.35 TB/s = 20 FLOP/byte). But the work per pair is small and its
+// What bounds it on this card: bytes up to 48 x 48 (32 x 32: 0.2 MFLOP against
+// 10 KB of inputs, below the f32 ridge of 67 TFLOP/s over 3.35 TB/s = 20
+// FLOP/byte), operations from 64 x 64 up, where the direct coarse-lag and
+// window sums grow as H*W*(ny + nwin). The work per pair is small and its
 // stages depend on each other, so what a design loses time to is latency:
-// barriers, idle threads, serial steps and bank conflicts.
+// barriers, idle SMs and threads, serial steps and bank conflicts.
 //
-// Two kernels, picked by shape in measure_window_launch:
+// Two kernels, picked by shape in measure_window_plan, whose plan
+// measure_window_launch carries out:
 //
-// * measure_fft_kernel, for square power-of-two cutouts of 16, 32 or 64
-//   (the align path's 32 x 32 cutouts, bench.py's 64 x 64 batch): a group
-//   of kPair = 64 threads (two warps) per pair, several pairs per block, so
-//   a stage barrier is a named barrier of the pair's 64 threads, and the
-//   per-pair sums (masked count, mean, variance, Parseval power) and the
-//   argmax are warp shuffles plus one exchange through shared memory. (One
-//   warp per pair was slower at 32 x 32 and 64 x 64: with 512 pairs an SM
-//   holds about 4 warps and every stall is exposed; four warps a pair
-//   gained nothing over two.) A thread's loads of each pass are all in
-//   flight at once: the mask type (none, bytes, f32) is a template
-//   parameter, so no branch stands between them (a branch there made
-//   their latencies add up), and a side is scaled by one reciprocal, not a
-//   division per value (whose slow path every masked-out zero takes).
-//   Both sides go through ONE complex 2-D FFT: z = a_ref + i*a_img, one
-//   thread per row and then one per column, each holding its line in
-//   registers (a radix-2 FFT of up to 32 points; a 64-point line is two
-//   32-point passes joined by one radix-2 step, so no thread holds more
-//   than 64 floats of it). The half-spectra split by hermitian symmetry,
-//   R = (Z[k] + conj Z[-k]) / 2 and I = (Z[k] - conj Z[-k]) / 2i.
-//   Shared-memory rows have a padded stride (W + 1), so thread r reading
-//   row r and thread c reading column c hit distinct banks; the twiddle
-//   tables are read by every thread at one index (a broadcast). K2y and
-//   K2x are staged in shared memory once per block (K2y with a padded
-//   stride), while the pairs' first loads are in flight. The coarse lags,
-//   the twist and the window keep the direct sums above.
-// * measure_kernel, for every other shape (H or W not a power of two, or
-//   above 64; the 256 x 256 oversized bucket): one 256-thread block per
-//   pair with block reductions and direct separable half-spectrum DFTs.
-//   Its per-pair buffers live in shared memory up to kSmemMax (17 KB at
-//   32 x 32, 67 KB at 64 x 64), else in a global workspace the wrapper
-//   allocates (1 MB a pair at 256 x 256), served by L2.
-//
-// No tensor cores: the bound is bytes, which tensor cores do not shorten,
-// and TF32 keeps about three decimal digits, short of the 5e-4-of-max bar
-// the window is held to without a 3xTF32 split. Everything is f32.
+// * measure_fft_kernel, for square 16, 32 or 64 cutouts (the align path's
+//   32 x 32 cutouts, bench.py's 64 x 64 batch): a group of kPair = 64
+//   threads (two warps) per pair, several pairs per block, so a stage
+//   barrier is a named barrier of the pair's 64 threads, and the per-pair
+//   sums (masked count, mean, variance, Parseval power) and the argmax are
+//   warp shuffles plus one exchange through shared memory. (One warp per
+//   pair was slower at 32 x 32 and 64 x 64: with 512 pairs an SM holds
+//   about 4 warps and every stall is exposed; four warps a pair gained
+//   nothing over two.) A thread's loads of each pass are all in flight at
+//   once: the mask type (none, bytes, f32) is a template parameter, so no
+//   branch stands between them (a branch there made their latencies add
+//   up), and a side is scaled by one reciprocal, not a division per value
+//   (whose slow path every masked-out zero takes). The FFT runs one thread
+//   per row and then one per column, each holding its line in registers (a
+//   radix-2 FFT of up to 32 points; a 64-point line is two 32-point passes
+//   joined by one radix-2 step). Shared-memory rows have a padded stride
+//   (W + 1), so thread r reading row r and thread c reading column c hit
+//   distinct banks. K2y and K2x are staged in shared memory once per block.
+// * measure_mixed_kernel, for every other shape (48, 80, 96, 112, 128 and
+//   the oversized bucket's 256; non-square and odd shapes; and, asked for,
+//   the FFT kernel's): a mixed-radix FFT for any N = P * m, P the power of
+//   two in N and m odd. Radix-2 decimation-in-frequency passes in shared
+//   memory split each of a line's m subsequences (stride m) into blocks of
+//   at most 16 points (none at 48, 80, 112; one at 96, three at 128, four
+//   at 256); a thread then transforms one block in its registers (the FFT
+//   kernel's radix-2 code); one direct length-m DFT pass finishes each line
+//   out of place, a thread taking the m values of one frequency of the
+//   blocks and giving m outputs (m_pass). At 48 x 48 a line's transform is
+//   thus two shared-memory passes with one barrier between them, where
+//   radix-2 passes alone took five. Rows are padded to an odd stride
+//   (W + 1), so the threads of a warp, one a row, hit distinct banks. The
+//   masked normalisation scales the cross-spectrum, not the data.
+//   A pair is measured by one CTA of 128 threads, or by a thread-block
+//   cluster of C = 2-8 CTAs (256 threads when two fit an SM, else 512):
+//   CTA k holds rows [k RP, (k+1) RP) and finishes their transforms; it
+//   then gathers, through distributed shared memory, the columns it owns
+//   (the column pairs {v, W - v} for v in its share of the half-spectrum,
+//   so the hermitian split, fused into the column pass's length-m step,
+//   needs no peer), a copy in which no remote value is read twice. The
+//   coarse lags and the window then run on those columns alone, and the
+//   coarse surface and the window are sums over v, added across the
+//   cluster in rank order (the same floats in every CTA, so every CTA takes
+//   the same argmax). The integer-shift twist is folded into the window:
+//   K2y times Dy before the sum over u, Dx after it; with one CTA a pair a
+//   thread sums two window rows by two columns, so each value it loads
+//   serves twice. C is the fewest
+//   CTAs whose buffers fit two CTAs per SM (or one: 8 CTAs of 180 KB at
+//   256 x 256), raised while the grid would not cover every SM: 16 pairs
+//   of 256 x 256 run on 128 SMs, not 16. Shapes whose buffers fit no
+//   cluster of 8 keep them in a global workspace (served by L2), indexed by
+//   rank in place of the distributed shared memory. What bounds it: at
+//   48 x 48 a chain of a dozen barrier-separated stages of similar cost,
+//   the loads and the window sums the largest, four CTAs sharing an SM's
+//   issue slots and shared memory; at 128 x 128 and up, registers (128 a
+//   thread) limit an SM to two CTAs, and the loads and the exchange
+//   through distributed shared memory are the largest stages.
+
+// No tensor cores: TF32 keeps about three decimal digits, short of the
+// 5e-4-of-max bar the window is held to without a 3xTF32 split. Everything
+// is f32.
 //
 // Masks are read as bytes when the caller has bool masks (the align loop's),
 // else as f32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-// per-pair buffers go to shared memory up to this many bytes
+// the FFT kernel's pairs per block fill shared memory up to this many bytes
 constexpr size_t kSmemMax = 100 * 1024;
 
 enum : int { M_CC = 0, M_NCC = 1, M_SPECTRAL = 2 };
 
-// A (B, H, W) mask: bytes or f32, or null (all ones).
-struct Mask {
-  const void* p;
-  int f32;
-  __device__ __forceinline__ float at(long long i) const {
-    if (p == nullptr) return 1.0f;
-    return f32 ? __ldg(static_cast<const float*>(p) + i)
-               : (float)__ldg(static_cast<const unsigned char*>(p) + i);
-  }
-};
-
 __device__ __forceinline__ int mod(long long a, int n) {
   int r = (int)(a % n);
   return r < 0 ? r + n : r;
-}
-
-// ===================== one block per pair (any shape) =====================
-
-// offsets (in floats) of one pair's buffers
-struct Layout {
-  int Wr, trows;
-  long long a, tr, ti, rr, ri, ir, ii, total;
-};
-
-__host__ __device__ inline Layout make_layout(int H, int W, int nwin, int ny, int nx) {
-  Layout L;
-  L.Wr = W / 2 + 1;
-  L.trows = H > nwin ? H : nwin;
-  if (ny > L.trows) L.trows = ny;  // the coarse stage's rows share tr/ti
-  long long hw = (long long)H * W;
-  if ((long long)ny * nx > hw) hw = (long long)ny * nx;  // coarse lags share a
-  const long long t = (long long)L.trows * L.Wr;
-  const long long s = (long long)H * L.Wr;
-  L.a = 0;
-  L.tr = hw;
-  L.ti = L.tr + t;
-  L.rr = L.ti + t;
-  L.ri = L.rr + s;
-  L.ir = L.ri + s;
-  L.ii = L.ir + s;
-  L.total = L.ii + s;
-  return L;
-}
-
-inline size_t smem_bytes(int H, int W, long long per_pair, bool pair_in_smem) {
-  return sizeof(float) * (2 * (size_t)(H + W) + (pair_in_smem ? (size_t)per_pair : 0));
-}
-
-// Sum of v over the block; every thread gets the result.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red[] may still be read from the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float s = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (threadIdx.x == 0) red[0] = s;
-  }
-  __syncthreads();
-  return red[0];
-}
-
-// One side of the correlation into a[]. Returns the DC-free power in
-// M_SPECTRAL mode, 0 otherwise. The caller synchronises before reading a[].
-__device__ float load_side(const float* __restrict__ x, Mask m, long long off,
-                           float* a, int HW, int mode, float* red) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  if (mode == M_SPECTRAL) {
-    float s = 0.0f;
-    for (int i = t; i < HW; i += nt) {
-      const float v = __ldg(x + off + i);
-      a[i] = v;
-      s += v;
-    }
-    const float mean = block_sum(s, red) / (float)HW;
-    float q = 0.0f;
-    for (int i = t; i < HW; i += nt) {
-      const float d = a[i] - mean;
-      q += d * d;
-    }
-    return (float)HW * block_sum(q, red);
-  }
-  float sm = 0.0f, sa = 0.0f;
-  for (int i = t; i < HW; i += nt) {
-    const float mi = m.at(off + i);
-    const float v = __ldg(x + off + i) * mi;
-    a[i] = v;
-    sm += mi;
-    sa += v;
-  }
-  if (mode == M_CC) return 0.0f;
-  const float n = fmaxf(block_sum(sm, red), 1.0f);
-  const float mean = block_sum(sa, red) / n;
-  float q = 0.0f;
-  for (int i = t; i < HW; i += nt) {
-    const float d = (a[i] - mean) * m.at(off + i);
-    a[i] = d;
-    q += d * d;
-  }
-  const float var = block_sum(q, red) / n;
-  const float inv = 1.0f / (sqrtf(fmaxf(var, 1e-20f)) * sqrtf(n));
-  for (int i = t; i < HW; i += nt) a[i] *= inv;
-  return 0.0f;
-}
-
-// Half-spectrum DFT X[u, v] = sum_y sum_x a[y, x] e^{-2 pi i (u y / H + v x / W)}
-// for u < H, v < Wr: a row pass into (tr, ti), then a column pass into (xr, xi).
-__device__ void rdft2(const float* a, float* tr, float* ti, float* xr, float* xi,
-                      int H, int W, int Wr, const float* cH, const float* sH,
-                      const float* cW, const float* sW) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  for (int o = t; o < H * Wr; o += nt) {
-    const int y = o / Wr, v = o - y * Wr;
-    const float* row = a + (long long)y * W;
-    float re = 0.0f, im = 0.0f;
-    int k = 0;  // (v * x) mod W
-    for (int x = 0; x < W; ++x) {
-      const float val = row[x];
-      re = fmaf(val, cW[k], re);
-      im = fmaf(-val, sW[k], im);
-      k += v;
-      if (k >= W) k -= W;
-    }
-    tr[o] = re;
-    ti[o] = im;
-  }
-  __syncthreads();
-  for (int o = t; o < H * Wr; o += nt) {
-    const int u = o / Wr, v = o - u * Wr;
-    float re = 0.0f, im = 0.0f;
-    int k = 0;  // (u * y) mod H
-    for (int y = 0; y < H; ++y) {
-      const float c = cH[k], s = sH[k];
-      const float pr = tr[y * Wr + v], pi = ti[y * Wr + v];
-      re = fmaf(pr, c, fmaf(pi, s, re));   // Re{(pr + i pi)(c - i s)}
-      im = fmaf(pi, c, fmaf(-pr, s, im));  // Im{...}
-      k += u;
-      if (k >= H) k -= H;
-    }
-    xr[o] = re;
-    xi[o] = im;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-measure_kernel(const float* __restrict__ ref, const float* __restrict__ img,
-               Mask rmask, Mask imask,
-               int H, int W, int mode, int nwin, int ly0, int lx0, int ny, int nx,
-               const float* __restrict__ tw, const float* __restrict__ k2y,
-               const float* __restrict__ k2x, float* workspace,
-               float* __restrict__ c2, int* __restrict__ s0y_out,
-               int* __restrict__ s0x_out) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
-  __shared__ int best[2];
-  const Layout L = make_layout(H, W, nwin, ny, nx);
-  const int Wr = L.Wr;
-  const int t = threadIdx.x, nt = blockDim.x;
-  const long long b = blockIdx.x;
-  const int HW = H * W;
-
-  // twiddles: cos/sin(2 pi j / H), then cos/sin(2 pi j / W)
-  float* cH = smem;
-  float* sH = cH + H;
-  float* cW = sH + H;
-  float* sW = cW + W;
-  for (int i = t; i < 2 * (H + W); i += nt) smem[i] = __ldg(tw + i);
-  float* buf = workspace ? workspace + b * L.total : sW + W;
-  float* a = buf + L.a;
-  float* tr = buf + L.tr;
-  float* ti = buf + L.ti;
-  float* gr_ = buf + L.rr;  // ref spectrum, then G
-  float* gi_ = buf + L.ri;
-  float* ir_ = buf + L.ir;
-  float* ii_ = buf + L.ii;
-
-  // ---- 1-2. both sides, normalised and transformed ----
-  const float p_ref = load_side(ref, rmask, b * HW, a, HW, mode, red);
-  __syncthreads();
-  rdft2(a, tr, ti, gr_, gi_, H, W, Wr, cH, sH, cW, sW);
-  const float p_img = load_side(img, imask, b * HW, a, HW, mode, red);
-  __syncthreads();
-  rdft2(a, tr, ti, ir_, ii_, H, W, Wr, cH, sH, cW, sW);
-
-  // ---- 3. cross-spectrum, in place of the ref spectrum ----
-  float scale = 1.0f;
-  if (mode == M_SPECTRAL)
-    scale = (float)HW * rsqrtf(fmaxf(p_ref, 1e-20f)) * rsqrtf(fmaxf(p_img, 1e-20f));
-  for (int o = t; o < H * Wr; o += nt) {
-    const float rr = gr_[o], ri = gi_[o], xr = ir_[o], xi = ii_[o];
-    float gr = xr * rr + xi * ri;
-    float gi = xi * rr - xr * ri;
-    if (mode == M_SPECTRAL) {
-      gr *= scale;
-      gi *= scale;
-      if (o == 0) gr = 0.0f;  // both means removed: no DC
-    }
-    gr_[o] = gr;
-    gi_[o] = gi;
-  }
-  __syncthreads();
-
-  // ---- 4. coarse lags of the search box and their argmax ----
-  for (int o = t; o < ny * Wr; o += nt) {
-    const int i = o / Wr, v = o - i * Wr;
-    const int step = mod(ly0 + i, H);
-    float re = 0.0f, im = 0.0f;
-    int k = 0;  // (u * lag) mod H
-    for (int u = 0; u < H; ++u) {
-      const float c = cH[k], s = sH[k], gr = gr_[u * Wr + v], gi = gi_[u * Wr + v];
-      re = fmaf(c, gr, fmaf(-s, gi, re));  // Re{(c + i s)(gr + i gi)}
-      im = fmaf(c, gi, fmaf(s, gr, im));
-      k += step;
-      if (k >= H) k -= H;
-    }
-    tr[o] = re;
-    ti[o] = im;
-  }
-  __syncthreads();
-  for (int o = t; o < ny * nx; o += nt) {
-    const int i = o / nx, j = o - i * nx;
-    const int step = mod(lx0 + j, W);
-    float acc = 0.0f;
-    int k = 0;  // (v * lag) mod W
-    for (int v = 0; v < Wr; ++v) {
-      const float wv = (v == 0 || 2 * v == W) ? 1.0f : 2.0f;  // hermitian fold
-      acc = fmaf(wv, tr[i * Wr + v] * cW[k] - ti[i * Wr + v] * sW[k], acc);
-      k += step;
-      if (k >= W) k -= W;
-    }
-    a[o] = acc / (float)HW;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int bi = 0;
-    float bv = a[0];
-    for (int o = 1; o < ny * nx; ++o) {
-      const float v = a[o];
-      if (!isnan(bv) && (isnan(v) || v > bv)) {
-        bv = v;
-        bi = o;
-      }
-    }
-    best[0] = bi / nx + ly0;
-    best[1] = bi % nx + lx0;
-    s0y_out[b] = best[0];
-    s0x_out[b] = best[1];
-  }
-  __syncthreads();
-  const int sy = best[0], sx = best[1];
-
-  // ---- 5. integer-shift phase twist G *= Dy(u) Dx(v) ----
-  for (int o = t; o < H * Wr; o += nt) {
-    const int u = o / Wr, v = o - u * Wr;
-    const int ky = mod((long long)u * sy, H);
-    const int kx = mod((long long)v * sx, W);
-    const float dr = cH[ky] * cW[kx] - sH[ky] * sW[kx];
-    const float di = cH[ky] * sW[kx] + sH[ky] * cW[kx];
-    const float gr = gr_[o], gi = gi_[o];
-    gr_[o] = gr * dr - gi * di;
-    gi_[o] = gr * di + gi * dr;
-  }
-  __syncthreads();
-
-  // ---- 6. upsampled window: A = K2y Gd, then C2 = Re{A K2x^T} ----
-  const float* k2yr = k2y;
-  const float* k2yi = k2y + (long long)nwin * H;
-  const float* k2xr = k2x;
-  const float* k2xi = k2x + (long long)nwin * Wr;
-  for (int o = t; o < nwin * Wr; o += nt) {
-    const int i = o / Wr, v = o - i * Wr;
-    float re = 0.0f, im = 0.0f;
-    for (int u = 0; u < H; ++u) {
-      const float c = __ldg(k2yr + i * H + u), s = __ldg(k2yi + i * H + u);
-      const float gr = gr_[u * Wr + v], gi = gi_[u * Wr + v];
-      re = fmaf(c, gr, fmaf(-s, gi, re));
-      im = fmaf(c, gi, fmaf(s, gr, im));
-    }
-    tr[o] = re;
-    ti[o] = im;
-  }
-  __syncthreads();
-  float* out = c2 + b * nwin * nwin;
-  for (int o = t; o < nwin * nwin; o += nt) {
-    const int i = o / nwin, j = o - i * nwin;
-    float acc = 0.0f;
-    for (int v = 0; v < Wr; ++v)
-      acc = fmaf(tr[i * Wr + v], __ldg(k2xr + j * Wr + v),
-                 fmaf(-ti[i * Wr + v], __ldg(k2xi + j * Wr + v), acc));
-    out[o] = acc;
-  }
 }
 
 // ============ two warps per pair (square 16, 32, 64 cutouts) =============
@@ -411,10 +152,10 @@ __device__ __forceinline__ int slot(int f) {
 // One radix-2 stage (half-size HS) of an in-register forward FFT of M
 // points, then the next stages. Each stage is its own instantiation, so
 // every register index is a compile-time constant and the arrays stay in
-// registers. tc/ts hold cos/sin(2 pi j / (M * TSTEP)).
-template <int M, int TSTEP, int HS>
+// registers. tc/ts hold cos/sin(2 pi j / (M * tstep)).
+template <int M, int HS>
 __device__ __forceinline__ void fft_stage(float (&re)[M], float (&im)[M],
-                                          const float* tc, const float* ts) {
+                                          const float* tc, const float* ts, int tstep) {
 #pragma unroll
   for (int k = 0; k < M; k += 2 * HS) {
 #pragma unroll
@@ -422,7 +163,7 @@ __device__ __forceinline__ void fft_stage(float (&re)[M], float (&im)[M],
       const float br = re[k + j + HS], bi = im[k + j + HS];
       float tr = br, ti = bi;
       if (j > 0) {  // times e^{-2 pi i j / (2 HS)} = c - i s
-        const int t = j * (M / (2 * HS)) * TSTEP;
+        const int t = j * (M / (2 * HS)) * tstep;
         const float c = tc[t], s = ts[t];
         tr = br * c + bi * s;
         ti = bi * c - br * s;
@@ -433,15 +174,16 @@ __device__ __forceinline__ void fft_stage(float (&re)[M], float (&im)[M],
       im[k + j] += ti;
     }
   }
-  if constexpr (2 * HS < M) fft_stage<M, TSTEP, 2 * HS>(re, im, tc, ts);
+  if constexpr (2 * HS < M) fft_stage<M, 2 * HS>(re, im, tc, ts, tstep);
 }
 
 // In-register forward FFT of M points, X[k] = sum_n x[n] e^{-2 pi i n k / M},
-// from input in bit-reversed order to output in natural order.
-template <int M, int TSTEP>
+// from input in bit-reversed order to output in natural order; tc/ts hold
+// cos/sin(2 pi j / (M * tstep)).
+template <int M>
 __device__ __forceinline__ void fft_reg(float (&re)[M], float (&im)[M],
-                                        const float* tc, const float* ts) {
-  fft_stage<M, TSTEP, 1>(re, im, tc, ts);
+                                        const float* tc, const float* ts, int tstep) {
+  if constexpr (M > 1) fft_stage<M, 1>(re, im, tc, ts, tstep);
 }
 
 // Forward FFT of one line of N complex values at lr[i * es], li[i * es],
@@ -458,7 +200,7 @@ __device__ __forceinline__ void fft_line(float* lr, float* li, int es,
       re[n] = lr[src];
       im[n] = li[src];
     }
-    fft_reg<N, 1>(re, im, tc, ts);
+    fft_reg<N>(re, im, tc, ts, 1);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       lr[k * es] = re[k];
@@ -476,7 +218,7 @@ __device__ __forceinline__ void fft_line(float* lr, float* li, int es,
       re[n] = lr[src];
       im[n] = li[src];
     }
-    fft_reg<M, 2>(re, im, tc, ts);
+    fft_reg<M>(re, im, tc, ts, 2);
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       lr[2 * k * es] = re[k];
@@ -488,7 +230,7 @@ __device__ __forceinline__ void fft_line(float* lr, float* li, int es,
       re[n] = lr[src];
       im[n] = li[src];
     }
-    fft_reg<M, 2>(re, im, tc, ts);
+    fft_reg<M>(re, im, tc, ts, 2);
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       const float c = tc[k], s = ts[k];
@@ -940,7 +682,7 @@ measure_fft_kernel(const float* __restrict__ ref, const float* __restrict__ img,
 }
 
 // Pairs per block of the FFT kernel for this shape, or 0 when the shape
-// takes the one-block kernel.
+// takes the mixed-radix kernel.
 int fft_pairs(int H, int W, int nwin, int ny) {
   if (H != W || (H != 16 && H != 32 && H != 64)) return 0;
   const FftLayout L = fft_layout(H, W, nwin, ny);
@@ -971,81 +713,894 @@ int launch_fft(const float* ref, const float* img, const void* rm,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ========== mixed radix, a cluster of CTAs per pair (every other shape) ==========
 
-// 1 when (H, W, nwin, ny) takes the FFT kernel, 0 when it takes
-// the one-block-per-pair kernel.
-extern "C" int measure_window_route(int H, int W, int nwin, int ny) {
-  return fft_pairs(H, W, nwin, ny) > 0 ? 1 : 0;
+// threads of a CTA, as measured on the H100: 128 when one CTA measures a
+// pair (256 was slower at 32 x 32 and 48 x 48); in a cluster 256 when
+// the cut leaves two CTAs an SM (faster than 512 at 80 x 80 to
+// 128 x 128: 512 threads get 64 registers each and spill), else 512
+// (faster than 256 at 256 x 256, where one CTA fills an SM). A thread
+// may take 128 registers in each case.
+constexpr int kSoloThreads = 128, kPairThreads = 256, kClusterThreads = 512;
+constexpr int kMaxWarps = kClusterThreads / 32;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// dynamic shared memory a CTA may take: at most kSmemTwo leaves room for
+// two CTAs per SM; kSmemOne is the card's per-block limit
+constexpr size_t kSmemTwo = 113 * 1024;
+constexpr size_t kSmemOne = 227 * 1024;
+// floats of the CTA's scratch: 4 partial sums a warp, then 16 slots of
+// cluster sums, then (value, index) of the argmax a warp
+constexpr int kRedSlots = 4 * kMaxWarps, kRedArg = kRedSlots + 16;
+constexpr int kRed = kRedArg + 2 * kMaxWarps;
+
+// How one shape is cut over a cluster: C CTAs per pair, CTA k holding rows
+// [k RP, (k+1) RP) of the pair and column pairs {p, W - p} for p in
+// [k PP, (k+1) PP); S floats per plane of each of its two buffers; ws 1
+// when those buffers live in a global workspace, not shared memory.
+struct MixPlan {
+  int C, RP, PP, PPs, S, ws;
+  long long smem_floats;
+};
+
+// The radix-2 passes in shared memory before the register FFTs of a line
+// whose power-of-two part is P: enough to leave blocks of at most 16
+// points. With blocks of 32 (64 values in registers) the one-CTA kernel
+// took 255 registers a thread, so half as many CTAs fit an SM, and the
+// cluster kernel, held to 128 by its 512 threads, spilled.
+inline int dif_count(int P) {
+  int b = 0;
+  while ((P >> b) > 16) ++b;
+  return b;
 }
 
-// Floats of global workspace the wrapper must allocate for B pairs of
-// H x W at window nwin and ny x nx coarse lags: 0 when a pair's buffers
-// fit in shared memory.
-extern "C" long long measure_window_workspace_floats(int B, int H, int W, int nwin,
-                                                     int ny, int nx) {
-  if (fft_pairs(H, W, nwin, ny) > 0) return 0;
-  const Layout L = make_layout(H, W, nwin, ny, nx);
-  if (smem_bytes(H, W, L.total, true) <= kSmemMax) return 0;
-  return (long long)B * L.total;
+// offsets (floats) of the CTA's shared arrays
+struct MixLayout {
+  long long tw, k2y, k2x, cp, c2p, x, y, total;
+};
+
+__host__ __device__ inline MixLayout mix_layout(int H, int W, int nwin, int ny, int nx,
+                                                int PPs, int S, int ws) {
+  MixLayout L;
+  L.tw = kRed;
+  L.k2y = L.tw + 2LL * (H + W);
+  L.k2x = L.k2y + 2LL * nwin * H;
+  L.cp = L.k2x + 2LL * nwin * PPs;
+  L.c2p = L.cp + (long long)ny * nx;
+  L.x = L.c2p + (long long)nwin * nwin;
+  L.y = L.x + (ws ? 0 : 2LL * S);
+  L.total = L.y + (ws ? 0 : 2LL * S);
+  return L;
+}
+
+inline MixPlan mix_cut(int H, int W, int nwin, int ny, int nx, int C, int ws) {
+  MixPlan p;
+  const int Wr = W / 2 + 1;
+  p.C = C;
+  p.RP = (H + C - 1) / C;
+  p.PP = (Wr + C - 1) / C;
+  p.PPs = p.PP | 1;  // odd stride: K2x rows of one CTA on distinct banks
+  long long s = (long long)p.RP * (W + 1);            // rows, then
+  if ((long long)H * 2 * p.PP > s) s = (long long)H * 2 * p.PP;  // columns
+  if ((long long)ny * p.PP > s) s = (long long)ny * p.PP;        // coarse rows
+  if ((long long)nwin * p.PP > s) s = (long long)nwin * p.PP;    // window rows
+  p.S = (int)s;
+  p.ws = ws;
+  p.smem_floats = mix_layout(H, W, nwin, ny, nx, p.PPs, p.S, ws).total;
+  return p;
+}
+
+// The cut of B pairs of H x W: the fewest CTAs per pair whose buffers fit
+// two CTAs per SM, else one, else buffers in a global workspace at 8;
+// then more CTAs per pair while the grid would not cover every SM.
+// C = 0 when not even the constants fit.
+inline MixPlan mix_plan(int B, int H, int W, int nwin, int ny, int nx, int sms) {
+  const int Wr = W / 2 + 1;
+  const int cmax_split = H < Wr ? H : Wr;
+  MixPlan p{};
+  bool found = false;
+  const size_t budgets[2] = {kSmemTwo, kSmemOne};
+  for (size_t budget : budgets) {
+    for (int C = 1; C <= kMaxCluster && !found; C *= 2) {
+      if (C > 1 && C > cmax_split) break;
+      const MixPlan q = mix_cut(H, W, nwin, ny, nx, C, 0);
+      if ((size_t)q.smem_floats * sizeof(float) <= budget) {
+        p = q;
+        found = true;
+      }
+    }
+    if (found) break;
+  }
+  if (!found) {
+    int C = kMaxCluster;
+    while (C > 1 && C > cmax_split) C /= 2;
+    p = mix_cut(H, W, nwin, ny, nx, C, 1);
+    if ((size_t)p.smem_floats * sizeof(float) > kSmemOne) p.C = 0;
+    return p;
+  }
+  while ((long long)B * p.C < sms && 2 * p.C <= kMaxCluster && 2 * p.C <= cmax_split) {
+    const MixPlan q = mix_cut(H, W, nwin, ny, nx, 2 * p.C, p.ws);
+    if ((size_t)q.smem_floats * sizeof(float) > kSmemOne) break;
+    p = q;
+  }
+  return p;
+}
+
+struct MixArgs {
+  const float* ref;
+  const float* img;
+  const void* rmask;
+  const void* imask;
+  int H, W, mode, nwin, ly0, lx0, ny, nx;
+  int C, RP, PP, PPs, S;
+  // H = PH * MH and W = PW * MW, PH and PW powers of two and MH, MW odd;
+  // BH, BW radix-2 passes in shared memory leave blocks of at most 16
+  // points to the register FFTs
+  int PH, MH, BH, PW, MW, BW;
+  const float* tw;
+  const float* k2y;
+  const float* k2x;
+  float* ws;  // null, or 4 S floats per CTA
+  float* c2;
+  int* s0y;
+  int* s0x;
+};
+
+template <int MT>
+__device__ __forceinline__ float mask_at(const void* p, long long i) {
+  if constexpr (MT == 0) {
+    return 1.0f;
+  } else if constexpr (MT == 1) {
+    return (float)__ldg(static_cast<const unsigned char*>(p) + i);
+  } else {
+    return __ldg(static_cast<const float*>(p) + i);
+  }
+}
+
+// A barrier of the CTA, or of the whole cluster (CL).
+template <bool CL>
+__device__ __forceinline__ void pair_sync(const cg::cluster_group& cl) {
+  if constexpr (CL) {
+    cl.sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// p in the shared memory of the cluster's CTA r (CL), or p itself.
+template <bool CL, typename T>
+__device__ __forceinline__ T* peer(const cg::cluster_group& cl, T* p, int r) {
+  if constexpr (CL) {
+    return cl.map_shared_rank(p, r);
+  } else {
+    return p;
+  }
+}
+
+// Sums of the N values v over every thread of the pair's CTAs, added in
+// rank order, so every CTA gets the same floats; `slot` is this call's
+// first of N scratch slots (each call its own: a peer may still read
+// them).
+template <bool CL, int N>
+__device__ __forceinline__ void pair_sum(float (&v)[N], float* red, int slot,
+                                         const cg::cluster_group& cl, int C) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[4 * (threadIdx.x >> 5) + k] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[4 * w + threadIdx.x];
+    red[kRedSlots + slot + threadIdx.x] = s;
+  }
+  pair_sync<CL>(cl);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float s = 0.0f;
+    for (int r = 0; r < C; ++r) s += peer<CL>(cl, red, r)[kRedSlots + slot + k];
+    v[k] = s;
+  }
+}
+
+// A division-free walk over a 2-D item space (rows of C items, C fastest):
+// the thread starts at item t0 and steps nt items at a time, so a loop
+// costs two divisions, not two per item. An empty row (C = 0) ends it.
+struct Walk {
+  int r, c, dr, dc, C;
+  __device__ __forceinline__ Walk(int C_, int t0, int nt) : C(C_) {
+    if (C_ <= 0) {
+      r = INT_MAX;
+      c = dr = dc = 0;
+      return;
+    }
+    r = t0 / C_;
+    c = t0 - r * C_;
+    dr = nt / C_;
+    dc = nt - dr * C_;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= C) {
+      c -= C;
+      ++r;
+    }
+  }
+};
+
+// The first b radix-2 decimation-in-frequency passes over the P-point
+// subsequences (stride m) of nl lines of N = P m points, in place in
+// shared memory: spans P/2 down to P/2^b, a barrier after each. Element n
+// of line l is at re/im[l * ls + n * es]. Afterwards the P points of
+// subsequence n2 are 2^b blocks of PS = P / 2^b, block t holding the
+// PS-point sequence whose DFT gives the subsequence's frequencies
+// rev_b(t) + 2^b k'. A butterfly is (line, q), q = n2 P/2 + jb, so n2 and
+// jb are a shift and a mask; rows take the butterflies of a line together,
+// columns (adjacent in memory) the lines of a butterfly.
+__device__ void dif_passes(float* re, float* im, int nl, int ls, int es, int N, int P, int m,
+                           int b, bool rows, const float* tc, const float* ts) {
+  if (b == 0 || nl <= 0) return;  // uniform over the block
+  const int hp = P >> 1, nq = m * hp, sh = __ffs(hp) - 1;
+  for (int h = hp; h >= (P >> b); h >>= 1) {
+    const int tstep = N / (2 * h);
+    for (Walk it(rows ? nq : nl, threadIdx.x, blockDim.x); it.r < (rows ? nl : nq);
+         it.next()) {
+      const int l = rows ? it.r : it.c, q = rows ? it.c : it.r;
+      const int n2 = q >> sh, jb = q & (hp - 1);
+      const int j = jb & (h - 1);
+      const int pa = ((jb - j) * 2 + j) * m + n2;
+      const int ia = l * ls + pa * es, ib = ia + h * m * es;
+      const float ar = re[ia], ai = im[ia], br = re[ib], bi = im[ib];
+      const float c = tc[j * tstep], s = ts[j * tstep];
+      const float dr = ar - br, di = ai - bi;
+      re[ia] = ar + br;
+      im[ia] = ai + bi;
+      re[ib] = dr * c + di * s;  // (dr + i di)(c - i s)
+      im[ib] = di * c - dr * s;
+    }
+    __syncthreads();
+  }
+}
+
+// The PS-point DFTs of every block left by dif_passes (nb = 2^b blocks of
+// each of the m subsequences of nl lines), each in one thread's registers,
+// in place: afterwards the block's position j' holds its frequency j'.
+// Consecutive threads take consecutive lines, so with an odd line stride
+// (rows) or adjacent lines (columns) a warp's accesses fall on distinct
+// banks. tstep = N / PS.
+template <int PS>
+__device__ __forceinline__ void sub_ffts(float* re, float* im, int nl, int ls, int es, int m,
+                                         int nb, int tstep, const float* tc, const float* ts) {
+  constexpr int kBits = ilog2(PS);
+  const int st = m * es;
+  for (Walk it(nl, threadIdx.x, blockDim.x); it.r < m * nb; it.next()) {
+    const int t = it.r / m, n2 = it.r - t * m;
+    float* lr = re + it.c * ls + (t * PS * m + n2) * es;
+    float* li = im + (lr - re);
+    float vr[PS], vi[PS];
+#pragma unroll
+    for (int n = 0; n < PS; ++n) {
+      const int src = bitrev(n, kBits) * st;
+      vr[n] = lr[src];
+      vi[n] = li[src];
+    }
+    fft_reg<PS>(vr, vi, tc, ts, tstep);
+#pragma unroll
+    for (int k = 0; k < PS; ++k) {
+      lr[k * st] = vr[k];
+      li[k * st] = vi[k];
+    }
+  }
+}
+
+// A line's radix-2 part, in place: b shared-memory passes, then the
+// register FFTs of PS = P / 2^b points (PS 1: nothing to do).
+__device__ __forceinline__ void pow2_ffts(float* re, float* im, int nl, int ls, int es, int N,
+                                          int P, int m, int b, bool rows, const float* tc,
+                                          const float* ts) {
+  dif_passes(re, im, nl, ls, es, N, P, m, b, rows, tc, ts);
+  const int PS = P >> b, nb = 1 << b;
+  switch (PS) {
+    case 2: sub_ffts<2>(re, im, nl, ls, es, m, nb, N / PS, tc, ts); break;
+    case 4: sub_ffts<4>(re, im, nl, ls, es, m, nb, N / PS, tc, ts); break;
+    case 8: sub_ffts<8>(re, im, nl, ls, es, m, nb, N / PS, tc, ts); break;
+    case 16: sub_ffts<16>(re, im, nl, ls, es, m, nb, N / PS, tc, ts); break;
+    default: break;
+  }
+}
+
+// Frequency k of a line after pow2_ffts: the direct length-m DFT over its
+// subsequences, X[k] = sum_n2 e^{-2 pi i n2 k / N} Y_n2[g], g = k mod P,
+// which lies in block rev_b(g mod 2^b) at position g >> b; the twiddle is
+// indexed by the exact integer (n2 k) mod N.
+__device__ __forceinline__ void mix_point(const float* sr, const float* si, int es, int k,
+                                          int N, int P, int m, int b, const float* tc,
+                                          const float* ts, float& xr, float& xi) {
+  const int g = k & (P - 1);
+  const int t = b == 0 ? 0 : (int)(__brev((unsigned)(g & ((1 << b) - 1))) >> (32 - b));
+  const int base = m * ((t * (P >> b)) + (g >> b));
+  float accr = 0.0f, acci = 0.0f;
+  int e = 0;  // (n2 * k) mod N
+  for (int n2 = 0; n2 < m; ++n2) {
+    const float vr = sr[(base + n2) * es], vi = si[(base + n2) * es];
+    const float c = tc[e], s = ts[e];
+    accr = fmaf(vr, c, fmaf(vi, s, accr));
+    acci = fmaf(vi, c, fmaf(-vr, s, acci));
+    e += k;
+    if (e >= N) e -= N;
+  }
+  xr = accr;
+  xi = acci;
+}
+
+// The length-m pass of nl lines after pow2_ffts, out of place: emit(l, k,
+// re, im) receives X[k] of line l for every k < N. With M = m known at
+// compile time a thread takes (line l, g < P): it loads the M values
+// Y_n2[g] (adjacent in memory), twists them by e^{-2 pi i n2 g / N} and
+// takes their length-M DFT in registers, X[g + P t] for t < M: M loads
+// give M outputs, where mix_point loads M for each. Lines are the
+// fastest index of the threads.
+template <int M, typename F>
+__device__ __forceinline__ void m_pass(const float* sr, const float* si, int nl, int ls, int es,
+                                       int N, int P, int b, const float* tc, const float* ts,
+                                       F&& emit) {
+  float wc[M], ws[M];  // e^{-2 pi i j / M} = table entry j P
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    wc[j] = tc[j * P];
+    ws[j] = ts[j * P];
+  }
+  for (Walk it(nl, threadIdx.x, blockDim.x); it.r < P; it.next()) {
+    const int l = it.c, g = it.r;
+    const int t = b == 0 ? 0 : (int)(__brev((unsigned)(g & ((1 << b) - 1))) >> (32 - b));
+    const long long o = l * (long long)ls + (long long)M * (t * (P >> b) + (g >> b)) * es;
+    float vr[M], vi[M];
+    int e = 0;  // (n2 g) mod N
+#pragma unroll
+    for (int n2 = 0; n2 < M; ++n2) {
+      const float ar = sr[o + n2 * es], ai = si[o + n2 * es], c = tc[e], s = ts[e];
+      vr[n2] = ar * c + ai * s;  // (ar + i ai)(c - i s)
+      vi[n2] = ai * c - ar * s;
+      e += g;
+      if (e >= N) e -= N;
+    }
+#pragma unroll
+    for (int t2 = 0; t2 < M; ++t2) {
+      float xr = 0.0f, xi = 0.0f;
+#pragma unroll
+      for (int n2 = 0; n2 < M; ++n2) {
+        const int j = (n2 * t2) % M;
+        xr = fmaf(vr[n2], wc[j], fmaf(vi[n2], ws[j], xr));
+        xi = fmaf(vi[n2], wc[j], fmaf(-vr[n2], ws[j], xi));
+      }
+      emit(l, g + P * t2, xr, xi);
+    }
+  }
+}
+
+// m_pass for the odd parts of the multiples of 16 up to 128 (m = 1, 3, 5,
+// 7; and 256), mix_point for every other m.
+template <typename F>
+__device__ __forceinline__ void m_pass_any(const float* sr, const float* si, int nl, int ls,
+                                           int es, int N, int P, int m, int b, const float* tc,
+                                           const float* ts, F&& emit) {
+  switch (m) {
+    case 1: m_pass<1>(sr, si, nl, ls, es, N, P, b, tc, ts, emit); return;
+    case 3: m_pass<3>(sr, si, nl, ls, es, N, P, b, tc, ts, emit); return;
+    case 5: m_pass<5>(sr, si, nl, ls, es, N, P, b, tc, ts, emit); return;
+    case 7: m_pass<7>(sr, si, nl, ls, es, N, P, b, tc, ts, emit); return;
+    default:
+      for (Walk it(nl, threadIdx.x, blockDim.x); it.r < N; it.next()) {
+        float xr, xi;
+        mix_point(sr + it.c * ls, si + it.c * ls, es, it.r, N, P, m, b, tc, ts, xr, xi);
+        emit(it.c, it.r, xr, xi);
+      }
+  }
+}
+
+// CL: the pair's CTAs form a cluster (C > 1); else one CTA measures it.
+// NT threads a CTA: kSoloThreads (C = 1), kPairThreads or kClusterThreads.
+template <int MT, bool CL, int NT>
+__global__ void __launch_bounds__(NT, 65536 / (128 * NT))
+measure_mixed_kernel(const MixArgs A) {
+  extern __shared__ float smem[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int C = CL ? A.C : 1, H = A.H, W = A.W, Wr = W / 2 + 1, HW = H * W, S = A.S;
+  const int PP = A.PP, PPs = A.PPs, LC = 2 * PP, nwin = A.nwin, ny = A.ny, nx = A.nx;
+  const int tid = threadIdx.x, nt = NT;
+  const int rank = CL ? (int)cl.block_rank() : 0;
+  const long long b = blockIdx.x / C;
+  const int r0 = min(rank * A.RP, H), nr = min(r0 + A.RP, H) - r0;
+  const int p0 = min(rank * PP, Wr), np = min(p0 + PP, Wr) - p0;
+  const MixLayout L = mix_layout(H, W, nwin, ny, nx, PPs, S, A.ws != nullptr);
+  float* red = smem;
+  float* cH = smem + L.tw;
+  float* sH = cH + H;
+  float* cW = sH + H;
+  float* sW = cW + W;
+  float* kyr = smem + L.k2y;  // (nwin, H)
+  float* kyi = kyr + nwin * H;
+  float* kxr = smem + L.k2x;  // (nwin, PPs): this CTA's columns of K2x
+  float* kxi = kxr + nwin * PPs;
+  float* cp = smem + L.cp;    // (ny, nx) partial coarse sums
+  float* c2p = smem + L.c2p;  // (nwin, nwin) partial window sums
+  float* xr = A.ws ? A.ws + 4LL * S * blockIdx.x : smem + L.x;
+  float* xi = xr + S;
+  float* yr = A.ws ? xr + 2LL * S : smem + L.y;
+  float* yi = yr + S;
+
+  // ---- constants ----
+  for (int i = tid; i < 2 * (H + W); i += nt) cH[i] = __ldg(A.tw + i);
+  for (int i = tid; i < 2 * nwin * H; i += nt) kyr[i] = __ldg(A.k2y + i);
+  for (Walk it(np, tid, nt); it.r < nwin; it.next()) {
+    const int j = it.r, q = it.c;
+    kxr[j * PPs + q] = __ldg(A.k2x + (long long)j * Wr + p0 + q);
+    kxi[j * PPs + q] = __ldg(A.k2x + (long long)(nwin + j) * Wr + p0 + q);
+  }
+
+  // ---- 1. this CTA's rows of both sides, normalised: x = ref + i img,
+  // rows at stride RS = W + 1 (odd for even W, so that the threads of a
+  // warp, one a row in the row FFTs, hit distinct banks); the masks wait in
+  // y for the second pass. Each pass walks the same cells in the same
+  // order per thread, so no barrier stands between them ----
+  const int RS = W + 1;
+  const long long off = b * HW + (long long)r0 * W;
+  float m4[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // mask counts, masked sums
+  for (Walk it(W, tid, nt); it.r < nr; it.next()) {
+    const int e = it.r * W + it.c, se = it.r * RS + it.c;
+    const float mr = mask_at<MT>(A.rmask, off + e), mi = mask_at<MT>(A.imask, off + e);
+    const float vr = __ldg(A.ref + off + e) * mr, vi = __ldg(A.img + off + e) * mi;
+    xr[se] = vr;
+    xi[se] = vi;
+    if constexpr (MT != 0) {
+      yr[se] = mr;
+      yi[se] = mi;
+    }
+    m4[0] += mr;
+    m4[1] += mi;
+    m4[2] += vr;
+    m4[3] += vi;
+  }
+  float scale = 1.0f;
+  if (A.mode != M_CC) {
+    pair_sum<CL>(m4, red, 0, cl, C);
+    const bool spectral = A.mode == M_SPECTRAL;  // raw data kept, n = H W
+    const float n_r = spectral ? (float)HW : fmaxf(m4[0], 1.0f);
+    const float n_i = spectral ? (float)HW : fmaxf(m4[1], 1.0f);
+    const float mean_r = m4[2] / n_r, mean_i = m4[3] / n_i;
+    float q[2] = {0.0f, 0.0f};
+    for (Walk it(W, tid, nt); it.r < nr; it.next()) {
+      const int se = it.r * RS + it.c;
+      float dr = xr[se] - mean_r, di = xi[se] - mean_i;
+      if (!spectral) {  // masked: remove the mean under the mask only
+        if constexpr (MT != 0) {
+          dr *= yr[se];
+          di *= yi[se];
+        }
+        xr[se] = dr;
+        xi[se] = di;
+      }
+      q[0] += dr * dr;
+      q[1] += di * di;
+    }
+    pair_sum<CL>(q, red, 4, cl, C);
+    if (spectral) {
+      scale = (float)HW * rsqrtf(fmaxf((float)HW * q[0], 1e-20f)) *
+              rsqrtf(fmaxf((float)HW * q[1], 1e-20f));
+    } else {
+      // each side's 1 / (std sqrt(n)) scales the cross-spectrum, not the
+      // data (the transforms are linear): no pass, no barrier
+      const float inv_r = 1.0f / (sqrtf(fmaxf(q[0] / n_r, 1e-20f)) * sqrtf(n_r));
+      const float inv_i = 1.0f / (sqrtf(fmaxf(q[1] / n_i, 1e-20f)) * sqrtf(n_i));
+      scale = inv_r * inv_i;
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. row transforms: radix-2 passes and register FFTs in place,
+  // then the length-MW pass, which also moves the data to column order:
+  // c[u][2q] holds column p0 + q, c[u][2q + 1] column W - p0 - q (the
+  // hermitian partner). One CTA reads its own rows (x -> y); a cluster
+  // finishes every row in its own CTA (x -> y) and then gathers its
+  // columns from the peers' rows, a copy through distributed shared
+  // memory (y -> x), so no remote value is read twice ----
+  pow2_ffts(xr, xi, nr, RS, 1, W, A.PW, A.MW, A.BW, true, cW, sW);
+  float *cr = yr, *ci = yi;  // the columns
+  float *zr = xr, *zi = xi;  // the other buffer
+  __syncthreads();
+  if constexpr (CL) {
+    m_pass_any(xr, xi, nr, RS, 1, W, A.PW, A.MW, A.BW, cW, sW,
+               [&](int l, int k, float re, float im) {
+                 yr[l * RS + k] = re;
+                 yi[l * RS + k] = im;
+               });
+    cl.sync();  // every CTA's rows are ready
+    cr = xr;
+    ci = xi;
+    zr = yr;
+    zi = yi;
+    for (int owner = 0; owner < C; ++owner) {
+      const int y0 = owner * A.RP, ny0 = min(y0 + A.RP, H) - y0;
+      if (ny0 <= 0) break;
+      const float* sr = A.ws ? yr + 4LL * S * (owner - rank) : cl.map_shared_rank(yr, owner);
+#pragma unroll 4
+      for (Walk it(LC, tid, nt); it.r < ny0; it.next()) {
+        const int lc = it.c, q = lc >> 1, p = p0 + q;
+        const bool some = q < np && !((lc & 1) && (p == 0 || 2 * p == W));
+        const int col = some ? ((lc & 1) ? W - p : p) : 0;
+        const float vr = sr[it.r * RS + col], vi = sr[S + it.r * RS + col];
+        cr[(y0 + it.r) * LC + lc] = some ? vr : 0.0f;
+        ci[(y0 + it.r) * LC + lc] = some ? vi : 0.0f;
+      }
+    }
+    cl.sync();  // no peer reads this CTA's rows any more
+  } else {
+    // column k goes to slot 2k (k <= W/2) or 2(W - k) + 1; the odd slots
+    // of the self-paired columns 0 and W/2 hold zeros
+    m_pass_any(xr, xi, nr, RS, 1, W, A.PW, A.MW, A.BW, cW, sW,
+               [&](int l, int k, float re, float im) {
+                 const int lc = 2 * k <= W ? 2 * k : 2 * (W - k) + 1;
+                 if (k == 0 || 2 * k == W) {
+                   yr[l * LC + lc + 1] = 0.0f;
+                   yi[l * LC + lc + 1] = 0.0f;
+                 }
+                 yr[l * LC + lc] = re;
+                 yi[l * LC + lc] = im;
+               });
+    __syncthreads();
+  }
+
+  // ---- 3. column transforms: radix-2 passes and register FFTs in place;
+  // the length-MH pass gives Z (z), whose Z(u, v) and Z(-u, -v) split the
+  // half-spectra by hermitian symmetry into G = I conj(R), G[u][q] for
+  // v = p0 + q, written over the spent columns ----
+  pow2_ffts(cr, ci, LC, 1, LC, H, A.PH, A.MH, A.BH, false, cH, sH);
+  __syncthreads();
+  m_pass_any(cr, ci, LC, 1, LC, H, A.PH, A.MH, A.BH, cH, sH,
+             [&](int l, int k, float re, float im) {
+               zr[k * LC + l] = re;
+               zi[k * LC + l] = im;
+             });
+  __syncthreads();
+  float* gR = cr;  // G, and the scratch rows of the stages below
+  float* gI = ci;
+  float* tR = zr;
+  float* tI = zi;
+  for (Walk it(np, tid, nt); it.r < H; it.next()) {
+    const int u = it.r, q = it.c, p = p0 + q, um = u == 0 ? 0 : H - u;
+    const int lm = 2 * q + ((p == 0 || 2 * p == W) ? 0 : 1);  // column -v
+    float gr, gi;
+    cross(zr[u * LC + 2 * q], zi[u * LC + 2 * q], zr[um * LC + lm], zi[um * LC + lm], scale, gr,
+          gi);
+    if (A.mode == M_SPECTRAL && u == 0 && p == 0) gr = 0.0f;  // no DC
+    gR[u * PP + q] = gr;
+    gI[u * PP + q] = gi;
+  }
+  __syncthreads();
+
+  // ---- 4. coarse lags of the search box: T[i][q] = sum_u e^{2 pi i u
+  // lag_i / H} G[u][q], then this CTA's part of the sum over v ----
+  for (Walk it(np, tid, nt); it.r < ny; it.next()) {
+    const int i = it.r, q = it.c;
+    const int step = mod(A.ly0 + i, H);
+    float re = 0.0f, im = 0.0f;
+    int k = 0;  // (u * lag) mod H
+#pragma unroll 4
+    for (int u = 0; u < H; ++u) {
+      const float c = cH[k], s = sH[k], gr = gR[u * PP + q], gi = gI[u * PP + q];
+      re = fmaf(c, gr, fmaf(-s, gi, re));  // Re{(c + i s)(gr + i gi)}
+      im = fmaf(c, gi, fmaf(s, gr, im));
+      k += step;
+      if (k >= H) k -= H;
+    }
+    tR[i * PP + q] = re;
+    tI[i * PP + q] = im;
+  }
+  __syncthreads();
+  float bv = 0.0f;
+  int bi = INT_MAX;  // argmax: none yet
+  for (Walk it(nx, tid, nt); it.r < ny; it.next()) {
+    const int i = it.r;
+    const int step = mod(A.lx0 + it.c, W);
+    float acc = 0.0f;
+    int k = mod((long long)p0 * step, W);  // (v * lag) mod W
+    for (int q = 0; q < np; ++q) {
+      const int v = p0 + q;
+      const float wv = (v == 0 || 2 * v == W) ? 1.0f : 2.0f;  // hermitian fold
+      acc = fmaf(wv, tR[i * PP + q] * cW[k] - tI[i * PP + q] * sW[k], acc);
+      k += step;
+      if (k >= W) k -= W;
+    }
+    const int o = i * nx + it.c;
+    if constexpr (CL) {
+      cp[o] = acc;
+    } else {
+      const float val = acc / (float)HW;
+      if (bi == INT_MAX || better(val, o, bv, bi)) {
+        bv = val;
+        bi = o;
+      }
+    }
+  }
+
+  // ---- 5. the coarse surface (partial sums in rank order) and its
+  // first-index argmax, in every CTA ----
+  if constexpr (CL) {
+    cl.sync();
+    for (int o = tid; o < ny * nx; o += nt) {
+      float acc = 0.0f;
+      for (int r = 0; r < C; ++r) acc += cl.map_shared_rank(cp, r)[o];
+      const float val = acc / (float)HW;
+      if (bi == INT_MAX || better(val, o, bv, bi)) {
+        bv = val;
+        bi = o;
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (oi != INT_MAX && (bi == INT_MAX || better(ov, oi, bv, bi))) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if ((tid & 31) == 0) {
+    red[kRedArg + 2 * (tid >> 5)] = bv;
+    red[kRedArg + 2 * (tid >> 5) + 1] = __int_as_float(bi);
+  }
+  __syncthreads();
+  for (int w = 0; w < (nt >> 5); ++w) {
+    const float ov = red[kRedArg + 2 * w];
+    const int oi = __float_as_int(red[kRedArg + 2 * w + 1]);
+    if (oi != INT_MAX && (bi == INT_MAX || better(ov, oi, bv, bi))) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  const int sy = bi / nx + A.ly0, sx = bi % nx + A.lx0;
+  if (rank == 0 && tid == 0) {
+    A.s0y[b] = sy;
+    A.s0x[b] = sx;
+  }
+
+  // ---- 6. the integer-shift twist G *= Dy(u) Dx(v) folded into the
+  // window: K2y[i][u] *= e^{2 pi i u s0y / H} here, e^{2 pi i v s0x / W}
+  // after the sum over u ----
+  for (Walk it(H, tid, nt); it.r < nwin; it.next()) {
+    const int k = mod((long long)it.c * sy, H), o = it.r * H + it.c;
+    const float c = kyr[o], s = kyi[o];
+    kyr[o] = c * cH[k] - s * sH[k];
+    kyi[o] = c * sH[k] + s * cH[k];
+  }
+  __syncthreads();
+
+  // ---- 7. upsampled window: A = K2y Gd on this CTA's columns, then its
+  // part of C2 = Re{A K2x^T}; the parts are added in rank order. One CTA
+  // a pair: a thread takes rows i, i + nh and columns q, q + qh, so each
+  // value of G and of K2y it loads serves two sums (in a cluster, which
+  // holds fewer columns a CTA, that left too few threads busy) ----
+  constexpr int BB = CL ? 1 : 2;
+  const int nh = (nwin + BB - 1) / BB, qh = (np + BB - 1) / BB;
+  for (Walk it(qh, tid, nt); it.r < nh; it.next()) {
+    int ii[BB], qq[BB];
+#pragma unroll
+    for (int a = 0; a < BB; ++a) {
+      ii[a] = min(it.r + a * nh, nwin - 1);
+      qq[a] = min(it.c + a * qh, np - 1);
+    }
+    float re[BB][BB], im[BB][BB];  // (row, column)
+#pragma unroll
+    for (int a = 0; a < BB; ++a) {
+#pragma unroll
+      for (int d = 0; d < BB; ++d) re[a][d] = im[a][d] = 0.0f;
+    }
+#pragma unroll 4
+    for (int u = 0; u < H; ++u) {
+      float gr[BB], gi[BB], c[BB], s[BB];
+#pragma unroll
+      for (int a = 0; a < BB; ++a) {
+        gr[a] = gR[u * PP + qq[a]];
+        gi[a] = gI[u * PP + qq[a]];
+        c[a] = kyr[ii[a] * H + u];
+        s[a] = kyi[ii[a] * H + u];
+      }
+#pragma unroll
+      for (int a = 0; a < BB; ++a) {
+#pragma unroll
+        for (int d = 0; d < BB; ++d) {
+          re[a][d] = fmaf(c[a], gr[d], fmaf(-s[a], gi[d], re[a][d]));
+          im[a][d] = fmaf(c[a], gi[d], fmaf(s[a], gr[d], im[a][d]));
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < BB; ++d) {
+      if (it.c + d * qh >= np) continue;
+      const int k = mod((long long)(p0 + qq[d]) * sx, W);
+#pragma unroll
+      for (int a = 0; a < BB; ++a) {
+        if (it.r + a * nh >= nwin) continue;
+        tR[ii[a] * PP + qq[d]] = re[a][d] * cW[k] - im[a][d] * sW[k];
+        tI[ii[a] * PP + qq[d]] = re[a][d] * sW[k] + im[a][d] * cW[k];
+      }
+    }
+  }
+  __syncthreads();
+  float* out = A.c2 + b * nwin * nwin;
+  for (Walk it(nwin, tid, nt); it.r < nwin; it.next()) {
+    const int i = it.r, j = it.c;
+    float acc = 0.0f;
+    for (int q = 0; q < np; ++q)
+      acc = fmaf(tR[i * PP + q], kxr[j * PPs + q], fmaf(-tI[i * PP + q], kxi[j * PPs + q], acc));
+    if constexpr (CL) {
+      c2p[i * nwin + j] = acc;
+    } else {
+      out[i * nwin + j] = acc;
+    }
+  }
+  if constexpr (CL) {
+    cl.sync();
+    for (int o = rank * nt + tid; o < nwin * nwin; o += C * nt) {
+      float acc = 0.0f;
+      for (int r = 0; r < C; ++r) acc += cl.map_shared_rank(c2p, r)[o];
+      out[o] = acc;
+    }
+    cl.sync();  // peers may still read this CTA's partial sums
+  }
+}
+
+template <int MT, bool CL, int NT>
+int launch_mixed(const MixPlan& p, MixArgs a, int B, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * (size_t)p.smem_floats;
+  cudaError_t e = cudaFuncSetAttribute(measure_mixed_kernel<MT, CL, NT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)B * p.C));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, measure_mixed_kernel<MT, CL, NT>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int launch_mixed_route(const MixPlan& p, const MixArgs& a, int B, cudaStream_t stream) {
+  if (p.C == 1) return launch_mixed<MT, false, kSoloThreads>(p, a, B, stream);
+  if ((size_t)p.smem_floats * sizeof(float) <= kSmemTwo)
+    return launch_mixed<MT, true, kPairThreads>(p, a, B, stream);
+  return launch_mixed<MT, true, kClusterThreads>(p, a, B, stream);
+}
+
+int sm_count() {
+  int dev = 0, sms = 1;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+}  // namespace
+
+// How B pairs of H x W at window nwin and ny x nx coarse lags are measured,
+// written to plan[4]: plan[0] = 0 for the FFT kernel, 1 for the mixed-radix
+// kernel; plan[1] = its CTAs per pair (the cluster; 1 for the FFT kernel);
+// plan[2] = 1 when the mixed kernel's buffers live in a global workspace;
+// plan[3] = the FFT kernel's pairs per block. `kernel` -1 picks by shape
+// (the FFT kernel where it takes the shape), 0 or 1 asks for that kernel.
+// Returns the floats of workspace the launch needs (0 for none), or -1
+// when the kernel asked for (or none) takes the shape.
+extern "C" long long measure_window_plan(int B, int H, int W, int nwin, int ny, int nx,
+                                         int kernel, int* plan) {
+  plan[0] = 0;
+  plan[1] = 1;
+  plan[2] = 0;
+  plan[3] = 0;
+  const int sms = sm_count();
+  int ppb = kernel == 1 ? 0 : fft_pairs(H, W, nwin, ny);
+  if (ppb > 0) {
+    // fewer pairs per block while the blocks would not cover every SM
+    while (ppb > 1 && (B + ppb - 1) / ppb < sms) ppb /= 2;
+    plan[3] = ppb;
+    return 0;
+  }
+  if (kernel == 0) return -1;
+  const MixPlan p = mix_plan(B, H, W, nwin, ny, nx, sms);
+  if (p.C == 0) return -1;
+  plan[0] = 1;
+  plan[1] = p.C;
+  plan[2] = p.ws;
+  return p.ws ? 4LL * p.S * p.C * (long long)B : 0;
 }
 
 // Measure B pairs of (H, W) f32 cutouts on `stream`. rmask / imask are
-// (B, H, W) bytes (mask_f32 = 0) or f32 (mask_f32 = 1), or null (all
+// (B, H, W) bytes (mask_f32 = 0) or f32 (mask_f32 = 1), or both null (all
 // ones); mode is 0 'CC', 1 masked 'NCC'/'ZNCC', 2 unmasked 'NCC'/'ZNCC';
 // the coarse lags are ly0 .. ly0+ny-1 by lx0 .. lx0+nx-1. tw holds cos, sin
 // of 2*pi*j/H (j < H) then of 2*pi*j/W (j < W); k2y the real then imaginary
 // (nwin, H) window kernel; k2x the real then imaginary (nwin, W/2+1) one.
-// workspace is null or holds measure_window_workspace_floats(B, H, W,
-// nwin, ny, nx) floats. Writes c2 (B, nwin, nwin), s0y and s0x (B,).
-// Returns cudaGetLastError() after the launch, or the error that
-// prevented it.
+// plan is what measure_window_plan(...) wrote for these arguments, and
+// workspace null or the floats it returned. Writes c2 (B, nwin, nwin), s0y
+// and s0x (B,). Returns cudaGetLastError() after the launch, or the error
+// that prevented it.
 extern "C" int measure_window_launch(const float* ref, const float* img,
                                      const void* __restrict__ rmask,
-    const void* __restrict__ imask,
-                                     int mask_f32, int B, int H, int W, int mode,
-                                     int nwin, int ly0, int lx0, int ny, int nx,
-                                     const float* tw, const float* k2y,
-                                     const float* k2x, float* workspace,
+                                     const void* __restrict__ imask, int mask_f32, int B,
+                                     int H, int W, int mode, int nwin, int ly0, int lx0,
+                                     int ny, int nx, const float* tw, const float* k2y,
+                                     const float* k2x, const int* plan, float* workspace,
                                      float* c2, int* s0y, int* s0x, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
   if (H < 1 || W < 1 || nwin < 1 || ny < 1 || nx < 1 || mode < M_CC || mode > M_SPECTRAL)
     return (int)cudaErrorInvalidValue;
-  const Mask rm{rmask, mask_f32}, im{imask, mask_f32};
+  // both masks or none (the wrapper passes a given mask for both sides or
+  // fills in the missing one)
+  if ((rmask == nullptr) != (imask == nullptr)) return (int)cudaErrorInvalidValue;
+  const int mt = rmask == nullptr ? 0 : (mask_f32 ? 2 : 1);
   cudaStream_t s = (cudaStream_t)stream;
-  int ppb = fft_pairs(H, W, nwin, ny);
-  if (ppb > 0) {
-    // fewer pairs per block while the blocks would not cover every SM
-    int dev = 0, sms = 1;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    while (ppb > 1 && (B + ppb - 1) / ppb < sms) ppb /= 2;
-    // both masks or none (the wrapper passes a given mask for both sides
-    // or fills in the missing one)
-    if ((rmask == nullptr) != (imask == nullptr)) return (int)cudaErrorInvalidValue;
-    const int mt = rmask == nullptr ? 0 : (mask_f32 ? 2 : 1);
+  if (plan[0] == 0) {
+    const int ppb = plan[3];
+    if (ppb < 1 || ppb > fft_pairs(H, W, nwin, ny)) return (int)cudaErrorInvalidValue;
     switch (H) {
       case 16:
         return launch_fft<16>(ref, img, rmask, imask, mt, B, ppb, mode, nwin, ly0, lx0,
-                               ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
+                              ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
       case 32:
         return launch_fft<32>(ref, img, rmask, imask, mt, B, ppb, mode, nwin, ly0, lx0,
-                               ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
+                              ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
       default:
         return launch_fft<64>(ref, img, rmask, imask, mt, B, ppb, mode, nwin, ly0, lx0,
-                               ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
+                              ny, nx, tw, k2y, k2x, c2, s0y, s0x, s);
     }
   }
-  const Layout L = make_layout(H, W, nwin, ny, nx);
-  const size_t bytes = smem_bytes(H, W, L.total, workspace == nullptr);
-  if (bytes > kSmemMax && workspace == nullptr) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        measure_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  measure_kernel<<<(unsigned)B, kThreads, bytes, s>>>(
-      ref, img, rm, im, H, W, mode, nwin, ly0, lx0, ny, nx, tw, k2y, k2x,
-      workspace, c2, s0y, s0x);
-  return (int)cudaGetLastError();
+  const int C = plan[1];
+  if (plan[0] != 1 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const MixPlan p = mix_cut(H, W, nwin, ny, nx, C, plan[2] != 0);
+  if ((size_t)p.smem_floats * sizeof(float) > kSmemOne || (p.ws && workspace == nullptr))
+    return (int)cudaErrorInvalidValue;
+  MixArgs a;
+  a.ref = ref;
+  a.img = img;
+  a.rmask = rmask;
+  a.imask = imask;
+  a.H = H;
+  a.W = W;
+  a.mode = mode;
+  a.nwin = nwin;
+  a.ly0 = ly0;
+  a.lx0 = lx0;
+  a.ny = ny;
+  a.nx = nx;
+  a.C = p.C;
+  a.RP = p.RP;
+  a.PP = p.PP;
+  a.PPs = p.PPs;
+  a.S = p.S;
+  a.PH = H & -H;
+  a.MH = H / a.PH;
+  a.BH = dif_count(a.PH);
+  a.PW = W & -W;
+  a.MW = W / a.PW;
+  a.BW = dif_count(a.PW);
+  a.tw = tw;
+  a.k2y = k2y;
+  a.k2x = k2x;
+  a.ws = p.ws ? workspace : nullptr;
+  a.c2 = c2;
+  a.s0y = s0y;
+  a.s0x = s0x;
+  if (mt == 0) return launch_mixed_route<0>(p, a, B, s);
+  if (mt == 1) return launch_mixed_route<1>(p, a, B, s);
+  return launch_mixed_route<2>(p, a, B, s);
 }

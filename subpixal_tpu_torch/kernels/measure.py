@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,12 +23,16 @@ from ..ops.correlate import measure_window as _plain
 from . import LAUNCHES
 from ._build import load
 
-__all__ = ["measure_window", "find_displacement", "uses_fft_kernel"]
+__all__ = ["measure_window", "find_displacement", "kernel_route", "Route"]
 
 #: normalisation mode -> code understood by csrc/measure_displacement.cu
 _CC, _NCC_MASKED, _NCC_SPECTRAL = 0, 1, 2
 
 _VP = ctypes.c_void_p
+_PLAN = ctypes.c_int * 4
+
+#: kernel names, in the order of measure_window_plan's codes
+_KERNELS = ("fft", "mixed_radix")
 
 
 def _lib():
@@ -35,21 +40,59 @@ def _lib():
     fn = lib.measure_window_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [_VP] * 4 + [ctypes.c_int] * 10 + [_VP] * 8
-        ws = lib.measure_window_workspace_floats
-        ws.restype = ctypes.c_longlong
-        ws.argtypes = [ctypes.c_int] * 6
-        route = lib.measure_window_route
-        route.restype = ctypes.c_int
-        route.argtypes = [ctypes.c_int] * 4
+        fn.argtypes = ([_VP] * 4 + [ctypes.c_int] * 10 + [_VP] * 3
+                       + [ctypes.POINTER(ctypes.c_int)] + [_VP] * 5)
+        plan = lib.measure_window_plan
+        plan.restype = ctypes.c_longlong
+        plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def uses_fft_kernel(H: int, W: int, nwin: int, ny: int) -> bool:
-    """Whether (H, W) cutouts at window ``nwin`` and ``ny`` coarse rows
-    take the FFT kernel (square 16, 32, 64; two warps a pair) rather
-    than the one-block-per-pair kernel; the launcher picks by shape."""
-    return bool(_lib().measure_window_route(H, W, nwin, ny))
+class Route(NamedTuple):
+    """How the kernel measures a batch: ``kernel`` 'fft' (square 16, 32,
+    64; two warps a pair, several pairs a block) or 'mixed_radix' (any
+    shape; a cluster of ``cluster`` CTAs a pair), and whether the mixed
+    kernel's buffers live in a global ``workspace`` (shapes too large for
+    a cluster's shared memory)."""
+
+    kernel: str
+    cluster: int
+    workspace: bool
+
+
+def _kernel_code(kernel: str | None) -> int:
+    if kernel is None:
+        return -1
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r} (expected None, "
+                         "'fft' or 'mixed_radix')")
+    return _KERNELS.index(kernel)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(B: int, H: int, W: int, nwin: int, ny: int, nx: int, kernel: int,
+          device: int):
+    """(Route, floats of workspace to allocate, the launcher's plan) on
+    CUDA device ``device``; ``kernel`` -1 picks by shape."""
+    plan = _PLAN()
+    with torch.cuda.device(device):
+        nws = _lib().measure_window_plan(B, H, W, nwin, ny, nx, kernel, plan)
+    if nws < 0:
+        which = "no kernel" if kernel < 0 else f"the {_KERNELS[kernel]} kernel"
+        raise ValueError(f"measure_window: {which} takes {B} pairs of "
+                         f"{H} x {W} at window {nwin}")
+    route = Route(_KERNELS[plan[0]], int(plan[1]), bool(plan[2]))
+    return route, int(nws), tuple(plan)
+
+
+def kernel_route(B: int, H: int, W: int, nwin: int, bounds,
+                 kernel: str | None = None) -> Route:
+    """The route B (H, W) pairs take on the current CUDA device at window
+    ``nwin`` and search box ``bounds`` (r0, r1, c0, c1): by shape, or
+    through ``kernel`` when it is given (as :func:`measure_window`)."""
+    r0, r1, c0, c1 = (int(v) for v in bounds)
+    return _plan(B, H, W, int(nwin), r1 - r0, c1 - c0, _kernel_code(kernel),
+                 torch.cuda.current_device())[0]
 
 
 @functools.lru_cache(maxsize=16)
@@ -113,7 +156,8 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
                    ref_mask: torch.Tensor | None = None,
                    img_mask: torch.Tensor | None = None, *,
                    cc_type: str = "NCC", usfac: int, nwin: int,
-                   bounds: tuple[int, int, int, int]):
+                   bounds: tuple[int, int, int, int],
+                   kernel: str | None = None):
     """Upsampled correlation window of each (ref, img) cutout pair.
 
     Same contract as :func:`subpixal_tpu_torch.ops.correlate.measure_window`:
@@ -126,11 +170,14 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
     broadcast to that shape, or None; bool masks are read in place as
     bytes) launch the kernel on the current stream; anything else raises.
     Square 16, 32 and 64 cutouts take the FFT kernel, every
-    other shape the one-block-per-pair kernel (:func:`uses_fft_kernel`).
+    other shape the mixed-radix kernel (:func:`kernel_route`); ``kernel``
+    'fft' or 'mixed_radix' asks for one of them (ValueError where it does
+    not take the shape; the mixed-radix kernel takes every shape).
     """
     if cc_type not in ("CC", "NCC", "ZNCC"):
         raise ValueError(
             f"unknown cc_type: {cc_type!r} (expected 'CC'|'NCC'|'ZNCC')")
+    code = _kernel_code(kernel)
     dev = ref.device
     if dev.type == "cpu":
         return _plain(ref, img, ref_mask, img_mask, cc_type=cc_type,
@@ -159,8 +206,10 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
         mode = _NCC_SPECTRAL if rm is None and im is None else _NCC_MASKED
     tw, k2y, k2x = _consts(H, W, int(usfac), int(nwin), str(dev))
     lib = _lib()
-    nws = lib.measure_window_workspace_floats(B, H, W, int(nwin), ny, nx)
-    ws = (torch.empty(int(nws), dtype=torch.float32, device=dev)
+    _, nws, plan = _plan(B, H, W, int(nwin), ny, nx, code,
+                         dev.index if dev.index is not None
+                         else torch.cuda.current_device())
+    ws = (torch.empty(nws, dtype=torch.float32, device=dev)
           if nws > 0 else None)
     c2 = torch.empty((B, nwin, nwin), dtype=torch.float32, device=dev)
     s0y = torch.empty(B, dtype=torch.int32, device=dev)
@@ -173,8 +222,8 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
         rc = lib.measure_window_launch(
             ref.data_ptr(), img.data_ptr(), ptr(rm), ptr(im), mask_f32, B,
             H, W, mode, int(nwin), r0 - H // 2, c0 - W // 2, ny, nx,
-            tw.data_ptr(), k2y.data_ptr(), k2x.data_ptr(), ptr(ws),
-            c2.data_ptr(), s0y.data_ptr(), s0x.data_ptr(),
+            tw.data_ptr(), k2y.data_ptr(), k2x.data_ptr(), _PLAN(*plan),
+            ptr(ws), c2.data_ptr(), s0y.data_ptr(), s0x.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"measure_window: kernel launch failed "

@@ -8,12 +8,13 @@ without one every test here skips. The file imports neither ``jax`` nor
 
 B1 and B2 evaluate the same float32 formulas as their plain versions;
 B1's atomics sum in an order that changes from run to run, B1 factors its
-weights by axis and both kernels fuse multiply-adds, so values agree to
-``REL_TOL`` relative to the largest plain value (at least 1), and
-validity and escape counts exactly. B3's two kernels sum their own FFTs
-or direct DFTs where the plain version runs ``torch.fft``, so the window
-agrees to ``C2_TOL`` of its largest value (the JAX package's bar for its
-own fused kernel) and the coarse shifts exactly.
+weights by axis, B2 takes its Lagrange weights in product form and both
+kernels fuse multiply-adds, so values agree to ``REL_TOL`` relative to
+the largest plain value (at least 1), and validity and escape counts
+exactly. B3's two kernels sum their own FFTs where the plain version runs
+``torch.fft``, so the window agrees to ``C2_TOL`` of its largest value
+(the JAX package's bar for its own fused kernel) and the coarse shifts
+exactly.
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ from subpixal_tpu_torch.align import _compact_blocks
 from subpixal_tpu_torch.kernels.drizzle import (_deposit_stack,
                                                 drizzle_deposit,
                                                 drizzle_deposit_stack)
-from subpixal_tpu_torch.kernels.measure import measure_window, uses_fft_kernel
+from subpixal_tpu_torch.kernels.measure import kernel_route, measure_window
 from subpixal_tpu_torch.ops.drizzle import DRIZZLE_KERNELS
 from subpixal_tpu_torch.ops.drizzle import drizzle_deposit as plain_deposit
 from subpixal_tpu_torch.ops.drizzle import \
@@ -203,6 +204,66 @@ def test_gather_kernel_matches_plain(card, interp):
     assert esc.shape == (x.shape[0],) and int(esc.abs().sum()) == 0
 
 
+def _star_grids(dev, B, n, rot, seed, shape=(1024, 1024)):
+    """An image of stars and B (n, n) cutout grids rotated by ``rot``
+    degrees, at fractional centers spread over the frame (edge cutouts go
+    partly invalid)."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = rng.normal(0.0, 0.01, shape)
+    for cx, cy in rng.uniform(0, W, (80, 2)):
+        img += 25.0 * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 6.48)
+    th = np.deg2rad(rot)
+    gy, gx = np.mgrid[0:n, 0:n].astype(np.float64) - n / 2
+    cen = rng.uniform(-8, W + 8, (B, 2)) + rng.uniform(-0.5, 0.5, (B, 2))
+    x = (np.cos(th) * gx - np.sin(th) * gy)[None] + cen[:, 0, None, None]
+    y = (np.sin(th) * gx + np.cos(th) * gy)[None] + cen[:, 1, None, None]
+    return (torch.tensor(a, dtype=torch.float32, device=dev)
+            for a in (img, x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", sorted(INTERP_TAPS))
+@pytest.mark.parametrize("B,n,rot", [
+    (64, 32, 0.2),    # the align path's 32² cutouts
+    (64, 48, 0.2),    # the 48² path's
+    (16, 128, 30.0),  # a 30° rotation
+    (16, 256, 0.2),   # the oversized bucket
+    (4, 256, 30.0),   # a skewed bucket grid
+])
+def test_gather_cutout_grids_match_plain(card, interp, B, n, rot):
+    """Rotated cutout grids over a star field, some reaching past the
+    frame's edges, at the align loop's shapes."""
+    img, x, y = _star_grids(card, B, n, rot, seed=n)
+    before = kernels.LAUNCHES["blot_gather"]
+    v, ok, esc = sample_cutouts(img, x, y, interp=interp, fill=-2.5)
+    pv, pok = sample_image(img, x, y, interp=interp, fill=-2.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["blot_gather"] == before + 1
+    assert torch.equal(ok, pok) and 0 < float(ok.float().mean()) < 1
+    assert _close(v, pv)
+    assert int(esc.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["linear", "poly5"])
+def test_gather_wide_rows_match_plain(card, interp):
+    """Grids of long rows, as blot_image passes a whole frame as one
+    cutout."""
+    img, _, _ = _star_grids(card, 1, 8, 0.0, seed=3)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(-4, 1028, (2, 3, 2500)), dtype=torch.float32,
+                     device=card)
+    y = torch.tensor(rng.uniform(100, 140, (2, 3, 2500)), dtype=torch.float32,
+                     device=card)
+    v, ok, _ = sample_cutouts(img, x, y, interp=interp, fill=-2.5)
+    pv, pok = sample_image(img, x, y, interp=interp, fill=-2.5)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, pok) and 0 < float(ok.float().mean()) < 1
+    assert _close(v, pv)
+
+
 @pytest.mark.cuda
 def test_kernels_raise_on_inputs_they_do_not_take(card):
     """A CUDA tensor takes the kernel or raises: no plain fallback."""
@@ -252,15 +313,15 @@ def _pairs(dev, B, n, shift, masked, seed=0, sigma=1.6):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,usfac,cc_type,masked,search,fft", [
-    (512, 32, 8, "NCC", True, "fitbox", True),     # the new path's shape
-    (500, 64, 10, "NCC", False, "fitbox", True),   # bench.py's batch
-    (16, 256, 8, "NCC", True, "fitbox", False),    # the bucket's cap
-    (37, 48, 8, "CC", True, 7, False),
-    (37, 32, 10, "ZNCC", False, 9, True),
-    (45, 32, 8, "CC", True, "fitbox", True),
-    (33, 64, 8, "NCC", True, 9, True),
-    (40, 64, 10, "CC", False, "fitbox", True),
-    (20, 16, 8, "NCC", True, 7, True),
+    (512, 32, 8, "NCC", True, "fitbox", "fft"),     # the new path's shape
+    (500, 64, 10, "NCC", False, "fitbox", "fft"),   # bench.py's batch
+    (16, 256, 8, "NCC", True, "fitbox", "mixed_radix"),  # the bucket's cap
+    (37, 48, 8, "CC", True, 7, "mixed_radix"),
+    (37, 32, 10, "ZNCC", False, 9, "fft"),
+    (45, 32, 8, "CC", True, "fitbox", "fft"),
+    (33, 64, 8, "NCC", True, 9, "fft"),
+    (40, 64, 10, "CC", False, "fitbox", "fft"),
+    (20, 16, 8, "NCC", True, 7, "fft"),
 ])
 def test_measure_kernel_matches_plain(card, B, n, usfac, cc_type, masked,
                                       search, fft):
@@ -268,7 +329,7 @@ def test_measure_kernel_matches_plain(card, B, n, usfac, cc_type, masked,
                          masked, seed=n)
     bounds = normalize_search_box(search, n, n, 5)
     nwin = -(-(usfac + 5 + 1) // 8) * 8
-    assert uses_fft_kernel(n, n, nwin, bounds[1] - bounds[0]) == fft
+    assert kernel_route(B, n, n, nwin, bounds).kernel == fft
     kw = dict(cc_type=cc_type, usfac=usfac, nwin=nwin, bounds=bounds)
     before = kernels.LAUNCHES["measure_displacement"]
     c2, sy, sx = measure_window(ref, img, m, m, **kw)
@@ -282,12 +343,15 @@ def test_measure_kernel_matches_plain(card, B, n, usfac, cc_type, masked,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,masks", [(32, "bool"), (64, "float"),
-                                     (24, "bool")])
+@pytest.mark.parametrize("n,masks", [
+    (32, "bool"), (64, "float"), (24, "bool"),
+    (48, "none"), (48, "bool"), (48, "float"),
+    (256, "none"), (256, "bool"), (256, "float")])
 def test_measure_kernel_ties_nan_and_mask_types(card, n, masks):
     """All-zero pairs (every lag ties: the first wins) and a pair with a
     NaN (every lag NaN: the first wins) give the plain version's shifts;
-    float masks and a mask on one side only take the same kernels."""
+    no masks, float masks and a mask on one side only take the same
+    kernels."""
     ref, img, m = _pairs(card, 12, n, 2.0, True, seed=n + 1)
     ref[3] = 0.0
     img[3] = 0.0
@@ -296,7 +360,8 @@ def test_measure_kernel_ties_nan_and_mask_types(card, n, masks):
         m = m.float()
     bounds = normalize_search_box(7, n, n, 5)
     kw = dict(cc_type="NCC", usfac=8, nwin=16, bounds=bounds)
-    for rm, im in ((m, m), (m, None)):
+    sides = ((None, None),) if masks == "none" else ((m, m), (m, None))
+    for rm, im in sides:
         c2, sy, sx = measure_window(ref, img, rm, im, **kw)
         pc2, psy, psx = plain_measure(ref, img, rm, im, **kw)
         torch.cuda.synchronize()
@@ -309,8 +374,8 @@ def test_measure_kernel_ties_nan_and_mask_types(card, n, masks):
 
 @pytest.mark.cuda
 def test_measure_kernel_one_block_at_24_by_40(card):
-    """A shape that is not a square power of two takes the one-block
-    kernel."""
+    """A shape that is not a square power of two takes the mixed-radix
+    kernel (24 = 8 x 3, 40 = 8 x 5)."""
     rng = np.random.default_rng(8)
     ref = torch.tensor(rng.normal(size=(9, 24, 40)), dtype=torch.float32,
                        device=card)
@@ -318,12 +383,85 @@ def test_measure_kernel_one_block_at_24_by_40(card):
     m = torch.tensor(rng.random((9, 24, 40)) > 0.05, device=card)
     bounds = normalize_search_box("fitbox", 24, 40, 5)
     kw = dict(cc_type="NCC", usfac=8, nwin=16, bounds=bounds)
-    assert not uses_fft_kernel(24, 40, 16, bounds[1] - bounds[0])
+    assert kernel_route(9, 24, 40, 16, bounds).kernel == "mixed_radix"
     c2, sy, sx = measure_window(ref, img, m, m, **kw)
     pc2, psy, psx = plain_measure(ref, img, m, m, **kw)
     torch.cuda.synchronize()
     assert torch.equal(sy, psy) and torch.equal(sx, psx)
     assert float((c2 - pc2).abs().max()) <= C2_TOL * float(pc2.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,workspace", [
+    (5, 45, 51, False),    # odd lengths: the length-m DFT pass alone
+    (2, 384, 384, True),   # too large for a cluster's shared memory
+])
+def test_measure_kernel_odd_and_oversized_shapes(card, B, H, W, workspace):
+    """Shapes outside the align loop's auto-sizing, from a user-given
+    cutout_shape: odd lengths, and buffers kept in a global workspace."""
+    rng = np.random.default_rng(H)
+    ref = torch.tensor(rng.normal(size=(B, H, W)), dtype=torch.float32,
+                       device=card)
+    img = torch.roll(ref, (1, -2), (1, 2)) + 0.01
+    m = torch.tensor(rng.random((B, H, W)) > 0.05, device=card)
+    bounds = normalize_search_box("fitbox", H, W, 5)
+    kw = dict(cc_type="NCC", usfac=8, nwin=16, bounds=bounds)
+    route = kernel_route(B, H, W, 16, bounds)
+    assert route.kernel == "mixed_radix" and route.workspace == workspace
+    c2, sy, sx = measure_window(ref, img, m, m, **kw)
+    pc2, psy, psx = plain_measure(ref, img, m, m, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sy, psy) and torch.equal(sx, psx)
+    assert float((c2 - pc2).abs().max()) <= C2_TOL * float(pc2.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(16, 257, 16))
+def test_measure_kernel_every_multiple_of_16(card, n):
+    """Every cutout size the align loop's auto-sizing can pick (multiples
+    of 16 up to the bucket's 256): 16, 32, 64 take the FFT kernel, the
+    rest the mixed-radix kernel, and all match the plain version."""
+    B = 6
+    ref, img, m = _pairs(card, B, n, 0.45, True, seed=n + 2)
+    bounds = normalize_search_box("fitbox", n, n, 5)
+    kw = dict(cc_type="NCC", usfac=8, nwin=16, bounds=bounds)
+    route = kernel_route(B, n, n, 16, bounds)
+    assert route.kernel == ("fft" if n in (16, 32, 64) else "mixed_radix")
+    c2, sy, sx = measure_window(ref, img, m, m, **kw)
+    pc2, psy, psx = plain_measure(ref, img, m, m, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sy, psy) and torch.equal(sx, psx)
+    assert float((c2 - pc2).abs().max()) <= C2_TOL * float(pc2.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,masked", [(16, True), (32, True), (32, False),
+                                      (64, True), (64, False)])
+def test_measure_mixed_kernel_asked_for_at_fft_shapes(card, n, masked):
+    """The mixed-radix kernel takes the FFT kernel's shapes too when asked
+    for (as chip_smoke.py times them side by side) and matches the plain
+    version; the FFT kernel asked for where it does not fit raises."""
+    ref, img, m = _pairs(card, 40, n, 0.45, masked, seed=n + 3)
+    bounds = normalize_search_box("fitbox", n, n, 5)
+    kw = dict(cc_type="NCC", usfac=8, nwin=16, bounds=bounds)
+    assert kernel_route(40, n, n, 16, bounds).kernel == "fft"
+    assert kernel_route(40, n, n, 16, bounds,
+                        kernel="mixed_radix").kernel == "mixed_radix"
+    before = kernels.LAUNCHES["measure_displacement"]
+    c2, sy, sx = measure_window(ref, img, m, m, kernel="mixed_radix", **kw)
+    fc2, fsy, fsx = measure_window(ref, img, m, m, kernel="fft", **kw)
+    pc2, psy, psx = plain_measure(ref, img, m, m, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["measure_displacement"] == before + 2
+    scale = float(pc2.abs().max())
+    for a, y, x in ((c2, sy, sx), (fc2, fsy, fsx)):
+        assert torch.equal(y, psy) and torch.equal(x, psx)
+        assert float((a - pc2).abs().max()) <= C2_TOL * scale
+    r48, i48, m48 = _pairs(card, 3, 48, 0.45, True)
+    with pytest.raises(ValueError, match="fft kernel"):
+        measure_window(r48, i48, m48, m48, kernel="fft", cc_type="NCC",
+                       usfac=8, nwin=16,
+                       bounds=normalize_search_box("fitbox", 48, 48, 5))
 
 
 @pytest.mark.cuda

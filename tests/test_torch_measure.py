@@ -113,11 +113,48 @@ def test_measure_window_zncc_shared_mask_matches_jax_kernel():
     _assert_window_parity(out[:3], out[3:])
 
 
+@pytest.mark.parametrize("H,W", [(48, 48), (80, 80), (96, 96), (128, 128),
+                                 (48, 80)])
+@pytest.mark.parametrize("cc_type,masked", [("NCC", True), ("NCC", False),
+                                            ("CC", True)])
+def test_measure_window_mixed_radix_shapes_match_jax_kernel(H, W, cc_type,
+                                                            masked):
+    """The shapes the CUDA port measures with its mixed-radix kernel (the
+    auto-sizing's 48, 80, 96, 128 and a non-square one), at usfac 8 with
+    the align loop's search box."""
+    B = 3
+    refs, imgs, rng = _star_pairs(B, H, W, seed=H + W, shift=0.45)
+    m = ((rng.uniform(size=(B, H, W)) > 0.05).astype(np.float32)
+         if masked else None)
+    bounds = normalize_search_box("fitbox", H, W, 5)
+    out = _both(refs, imgs, m, m, cc_type, 8, 16, bounds)
+    _assert_window_parity(out[:3], out[3:])
+
+
 def test_measure_window_rejects_unknown_cc_type():
     a = torch.zeros((2, 16, 16))
     for fn in (OC.measure_window, kmeasure.measure_window):
         with pytest.raises(ValueError, match="cc_type"):
             fn(a, a, cc_type="nope", usfac=4, nwin=8, bounds=(4, 12, 4, 12))
+
+
+@pytest.mark.parametrize("kernel", ["fft", "mixed_radix"])
+def test_measure_window_kernel_choice_on_cpu_matches_jax_kernel(kernel):
+    """Asking for either CUDA kernel on CPU tensors still takes the plain
+    version, which matches the JAX kernel; an unknown kernel raises."""
+    refs, imgs, rng = _star_pairs(4, 32, 32, seed=5, shift=0.45)
+    m = (rng.uniform(size=(4, 32, 32)) > 0.05).astype(np.float32)
+    bounds = normalize_search_box("fitbox", 32, 32, 5)
+    out = _both(refs, imgs, m, m, "NCC", 8, 16, bounds)
+    tm = torch.from_numpy(m)
+    got = kmeasure.measure_window(
+        torch.from_numpy(refs), torch.from_numpy(imgs), tm, tm,
+        cc_type="NCC", usfac=8, nwin=16, bounds=bounds, kernel=kernel)
+    _assert_window_parity(out[:3], [g.numpy() for g in got])
+    with pytest.raises(ValueError, match="kernel"):
+        kmeasure.measure_window(
+            torch.from_numpy(refs), torch.from_numpy(imgs), cc_type="NCC",
+            usfac=8, nwin=16, bounds=bounds, kernel="cufft")
 
 
 def test_find_displacement_shifts_match_jax_kernel_pipeline():
