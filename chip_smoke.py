@@ -39,23 +39,39 @@ failure):
    mixed-radix kernel asked for on the same pairs; the mixed-radix kernel
    on 512 masked pairs of 48² (the 48² path's), of 128²
    (``max_cut_size``) and on 16 of 256² (the oversized bucket's cap);
-6. the defaults' path: ``align_images`` on an 8 x 1024², 60-star
-   simulated stack for 4 iterations, with the kernels' launch counts set
-   to 0 just before and read just after (B1 and B2 must have run, B1
-   once per exposure at setup and once per iteration); the fit error
-   against the planted shifts must be under 10 mpix, and the first
-   iteration's shifts must agree within 1e-3 px with the same run forced
-   through the plain versions on the card. A second call of the same run
-   gives the steady-state time per iteration;
-7. the new path: the same scene with the JAX package's own align
+6. the catalog phase: the device source finder on the main path's
+   reference (the 8 x 1024², 60-star stack drizzled on the card), held
+   to its own run on the CPU (rows, areas, bboxes and segmentation planes
+   equal, positions within 1e-4 px, fluxes within 1e-5 relative); warm
+   ms on the card beside the CPU run and the host finder;
+7. the defaults' path: ``align_images`` on that stack for 4 iterations,
+   with the kernels' launch counts set to 0 just before and read just
+   after (B1 and B2 must have run, B1 once per exposure at setup and
+   once per iteration), and a spy on the device finder, which 'auto'
+   must have run on the card; the fit error against the planted shifts
+   must be under 10 mpix, and the first iteration's shifts must agree
+   within 1e-3 px with the same run forced through the plain versions on
+   the card. A second call of the same run gives the steady-state time
+   per iteration and setup breakdown;
+8. the defaults' path with ``device_catalog='host'`` (the host finder,
+   never the device one), whose shifts must agree with phase 7's within
+   3 mpix, the JAX package's own bar between the two finders;
+9. the new path: the same scene with the JAX package's own align
    configuration (``bench.py``'s align smoke: shift fit, ``usfac`` 8,
    Gaussian peak), whose 'auto' settings on the card take device
    pixmaps and the sparse deposit; B1, B2 and B3 must all have run, with
    the same checks and a second, warm call;
-8. the 48² path: the same configuration on the same scene with broader
-   stars (sigma 3.0 px), whose footprints make the auto-sizing pick 48²
-   cutouts; B3 must measure 512 pairs of 48² each iteration through the
-   mixed-radix kernel, with the same checks as phase 7.
+10. the 48² path: the same configuration on the same scene with broader
+    stars (sigma 3.0 px), whose footprints make the auto-sizing pick 48²
+    cutouts; B3 must measure 512 pairs of 48² each iteration through the
+    mixed-radix kernel, with the same checks as phase 9;
+11. the otf path: phase 9's configuration with ``wcsupdate='otf'`` for 4
+    iterations: B1 must launch 8 + 8 per iteration times (the stack
+    re-drizzled before each exposure is measured), B2 and B3 8 times an
+    iteration, with the same checks;
+12. the host-loop path: phase 9's configuration with
+    ``device_loop=False`` for 2 iterations, with the same checks; its
+    shifts must follow phase 9's device loop within 1e-4 px.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -573,18 +589,21 @@ def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False):
                               device=x.device)
 
 
-def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
-    """align_images on 8 x 1024², 60 stars of width ``sigma``, 4
+def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
+                finder="device", **config):
+    """align_images on 8 x 1024², 60 stars of width ``sigma``, ``iters``
     iterations, on the card.
 
     ``expect`` names the kernels this path must launch; ``measured`` is
     None or ((B, H, W), route): the batch B3 must measure each iteration
-    and the route it must take. Returns the launch counts of the first
-    call."""
+    and the route it must take; ``finder`` the source finder setup must
+    run ('device': the device finder, counted by a spy; 'host': never the
+    device finder). Returns the launch counts of the first call and its
+    result."""
     import torch
 
     from subpixal_tpu_torch import align as align_mod
-    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch import catalogs_device, kernels
     from subpixal_tpu_torch import resample as resample_mod
     from subpixal_tpu_torch.align import align_images
     from subpixal_tpu_torch.ops.correlate import measure_window
@@ -595,20 +614,33 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
                                    seed=11, sigma=sigma)
     kw = dict(exposures=exps, device=dev, eps_shift=1e-7, **config)
     seen = []
+    finds = []
     kernel_measure = align_mod.measure_window
+    device_finder = catalogs_device.find_sources_device
 
     def spy(ref, *a, **k):  # the batches the loop hands to B3
         seen.append((tuple(ref.shape), k["nwin"], tuple(k["bounds"])))
         return kernel_measure(ref, *a, **k)
 
+    def finder_spy(image, *a, **k):  # the device finder's calls
+        finds.append(image.device.type)
+        return device_finder(image, *a, **k)
+
     kernels.reset_launch_counts()
     t0 = time.time()
-    with mock.patch.object(align_mod, "measure_window", spy):
-        res = align_images(max_iterations=4, **kw)
+    with mock.patch.object(align_mod, "measure_window", spy), \
+            mock.patch.object(catalogs_device, "find_sources_device",
+                              finder_spy):
+        res = align_images(max_iterations=iters, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
-    print(f"{label}: launches {launches}, wall {wall:.2f} s")
+    print(f"{label}: launches {launches}, wall {wall:.2f} s, device "
+          f"finder calls {finds}")
+    if (finder == "device") != bool(finds) or \
+            any(d != "cuda" for d in finds):
+        raise AssertionError(f"{label}: setup ran the device finder on "
+                             f"{finds}, expected the {finder} finder")
     if measured is not None:
         from subpixal_tpu_torch.kernels.measure import kernel_route
 
@@ -623,11 +655,18 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
     # B1: one launch per exposure for the initial drizzle, then the whole
-    # stack in one launch per iteration
-    if launches["drizzle_deposit"] != len(exps) + res.n_iterations:
+    # stack in one launch per iteration, or once per exposure under otf;
+    # under otf B2 (and B3) measure one exposure's set a launch
+    otf = config.get("wcsupdate") == "otf"
+    per_iter = len(exps) if otf else 1
+    if launches["drizzle_deposit"] != len(exps) + per_iter * res.n_iterations:
         raise AssertionError(f"{label}: {launches['drizzle_deposit']} B1 "
                              f"launches for {len(exps)} exposures and "
                              f"{res.n_iterations} iterations")
+    if otf and any(launches[k] != per_iter * res.n_iterations
+                   for k in expect if k != "drizzle_deposit"):
+        raise AssertionError(f"{label}: {launches} for {res.n_iterations} "
+                             "otf iterations")
     shifts = np.asarray(res.shifts)
     if shifts.shape != (8, 2) or not np.isfinite(shifts).all():
         raise AssertionError(f"bad shifts {shifts}")
@@ -638,15 +677,17 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
           f"{err_mpix:.3f} mpix, sources {res.history[0][0].nmatches}")
     print(f"{label}: setup_breakdown " + json.dumps(
         {k: round(v, 4) for k, v in res.setup_breakdown.items()}))
-    if res.n_iterations != 4 or not err_mpix < 10.0:
+    if res.n_iterations != iters or not err_mpix < 10.0:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, "
                              f"error {err_mpix} mpix")
     # the first call in a process pays cuFFT plans and lazy kernel loads;
     # a second call shows the steady state
-    warm = align_images(max_iterations=4, **kw)
+    warm = align_images(max_iterations=iters, **kw)
     warm_ms = 1e3 * warm.history[-1][0].iter_s
     print(f"{label}, second call: setup_s {warm.setup_s:.3f}, "
           f"{warm_ms:.3f} ms per iteration")
+    print(f"{label}, second call: setup_breakdown " + json.dumps(
+        {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
     # the same run forced through the plain versions on the card
     with mock.patch.object(align_mod, "drizzle_deposit_stack",
                            _plain_deposit_stack), \
@@ -662,7 +703,70 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, **config):
     if not d < 1e-3:
         raise AssertionError(f"{label}: first iteration differs from the "
                              f"plain run by {d} px")
-    return launches
+    return launches, res
+
+
+def phase_catalog(dev):
+    """The device finder on the main path's reference: the 8 x 1024²
+    stack drizzled on the card, found on the card and on the CPU (rows,
+    areas, bboxes and segmentation planes equal, positions within 1e-4
+    px, fluxes within 1e-5 relative); warm ms of each beside the host
+    finder's on the same image."""
+    import torch
+
+    from subpixal_tpu_torch.catalogs import find_sources
+    from subpixal_tpu_torch.catalogs_device import find_sources_device
+    from subpixal_tpu_torch.ops.drizzle import drizzle_combine
+    from subpixal_tpu_torch.resample import Drizzle
+    from subpixal_tpu_torch.testing import simulate_stack
+
+    exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                             seed=11)
+    drz = Drizzle(exps, device=dev)
+    drz.execute()
+    img = drizzle_combine(drz._sci_acc, drz._wht_acc, fill=drz.fillval)
+    host = img.cpu()
+
+    def wall_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    t0 = time.perf_counter()
+    gc, gseg = find_sources_device(img)
+    torch.cuda.synchronize()
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    cc, cseg = find_sources_device(host)
+    same = (len(gc) == len(cc) and all(
+        np.array_equal(gc[k], cc[k])
+        for k in ("id", "area", "xmin", "xmax", "ymin", "ymax")))
+    dpos = max(float(np.abs(gc[k] - cc[k]).max()) for k in ("x", "y")) \
+        if same and len(gc) else float("inf")
+    dflux = float(np.abs(gc["flux"] / cc["flux"] - 1).max()) \
+        if same and len(gc) else float("inf")
+    seg_eq = bool(torch.equal(gseg.cpu(), cseg))
+    print(f"catalog: device finder on {tuple(img.shape)}: {len(gc)} sources "
+          f"on the card, {len(cc)} on the CPU; rows equal {same}, max "
+          f"|dpos| {dpos:.2e} px, max flux rel {dflux:.2e}, segmentation "
+          f"equal {seg_eq}")
+    if not (same and dpos < 1e-4 and dflux < 1e-5 and seg_eq and len(gc)):
+        raise AssertionError("the device finder on the card disagrees "
+                             "with its CPU run")
+    dev_ms = wall_ms(lambda: find_sources_device(img), 10)
+    cpu_ms = wall_ms(lambda: find_sources_device(host), 3)
+    arr = host.numpy()
+    host_ms = wall_ms(lambda: find_sources(arr), 3)
+    n_host = len(find_sources(arr)[0])
+    print(f"catalog: device finder on the card {dev_ms:.3f} ms warm (first "
+          f"call {cold_ms:.3f}), on the CPU {cpu_ms:.3f} ms; host finder "
+          f"{host_ms:.3f} ms ({n_host} sources)")
+    return dict(device_ms=dev_ms, first_ms=cold_ms, cpu_ms=cpu_ms,
+                host_ms=host_ms, n=len(gc), n_host=n_host)
 
 
 def profile_redrizzle(dev) -> None:
@@ -769,9 +873,12 @@ def profile_paths(dev) -> None:
     from subpixal_tpu_torch.testing import simulate_stack
 
     new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
-    for label, sigma, config in (("defaults' path", 1.8, {}),
-                                 ("new path", 1.8, new),
-                                 ("48² path", 3.0, new)):
+    for label, sigma, config in (
+            ("defaults' path", 1.8, {}),
+            ("defaults' path, host finder", 1.8,
+             dict(device_catalog="host")),
+            ("new path", 1.8, new), ("48² path", 3.0, new),
+            ("otf path", 1.8, dict(new, wcsupdate="otf"))):
         exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
                                  seed=11, sigma=sigma)
         kw = dict(exposures=exps, device=dev, eps_shift=1e-7,
@@ -839,17 +946,46 @@ def main() -> int:
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
     b3 = phase_b3(dev)
-    by_path = {
+    phase_catalog(dev)
+    new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
+    runs = {
         "defaults": phase_align(dev, "defaults' path",
                                 ("drizzle_deposit", "blot_gather")),
-        "align_usfac8": phase_align(
-            dev, "new path", tuple(kernels.LAUNCHES), fitgeom="shift",
-            usfac=8, fit_type="gaussian"),
+        "defaults_host_finder": phase_align(
+            dev, "defaults' path, host finder",
+            ("drizzle_deposit", "blot_gather"), finder="host",
+            device_catalog="host"),
+        "align_usfac8": phase_align(dev, "new path", tuple(kernels.LAUNCHES),
+                                    **new),
         "align_usfac8_48": phase_align(
             dev, "48² path", tuple(kernels.LAUNCHES), sigma=3.0,
-            measured=((512, 48, 48), "mixed_radix"), fitgeom="shift",
-            usfac=8, fit_type="gaussian"),
+            measured=((512, 48, 48), "mixed_radix"), **new),
+        # otf converges geometrically where batch corrects every exposure
+        # to the mean in one step (the JAX package's otf does the same):
+        # 2 iterations leave ~24 mpix on this scene, 4 well under 10
+        "otf": phase_align(dev, "otf path", tuple(kernels.LAUNCHES),
+                           iters=4, wcsupdate="otf", **new),
+        "host_loop": phase_align(dev, "host-loop path",
+                                 tuple(kernels.LAUNCHES), iters=2,
+                                 device_loop=False, **new),
     }
+    # the reference's own bar between the finders (tests/test_align.py)
+    d_fin = float(np.abs(runs["defaults"][1].shifts
+                         - runs["defaults_host_finder"][1].shifts).max())
+    print(f"defaults' path, device vs host finder: max |dshift| "
+          f"{1e3 * d_fin:.3f} mpix")
+    if not d_fin < 3e-3:
+        raise AssertionError(f"the finders' shifts differ by {d_fin} px")
+    # the host loop follows the device loop
+    d_loop = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+                 for ra, rb in zip(runs["host_loop"][1].history,
+                                   runs["align_usfac8"][1].history)
+                 for a, b in zip(ra, rb))
+    print(f"host loop vs device loop, 2 iterations: max |dshift| "
+          f"{d_loop:.3e} px")
+    if not d_loop < 1e-4:
+        raise AssertionError(f"the host loop differs by {d_loop} px")
+    by_path = {p: r[0] for p, r in runs.items()}
 
     def entries(name, source, replaces, shapes):
         return [{"name": name, "route": "cuda",

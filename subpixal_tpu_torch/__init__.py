@@ -8,7 +8,10 @@ beside it as the reference; this package imports ``torch``, ``numpy``
 and ``scipy``, and never ``jax`` or ``subpixal_tpu``.
 
 Module map (JAX package -> here):
-  align                  -> align         (align_images, batch mode)
+  align                  -> align         (align_images: batch and otf,
+                                           device and host loop)
+  catalogs/device        -> catalogs_device (the device source finder,
+                                           plain PyTorch)
   ops/*                  -> ops/*         (plain PyTorch)
   kernels/drizzle, blot,
   measure                -> kernels/*     (hand-written CUDA, csrc/*.cu)

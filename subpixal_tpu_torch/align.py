@@ -1,13 +1,15 @@
-"""Iterative image alignment — the port's main API (batch mode, one device).
+"""Iterative image alignment — the port's main API (one device).
 
-Counterpart of ``subpixal_tpu/align.py · align_images`` for
-``wcsupdate='batch'`` on one device: measure per-source displacements
-between each exposure and the combined (drizzled) reference, fit a
-sigma-clipped linear correction per exposure in the reference pixel
-frame, compose it into the per-exposure affine state, and repeat until
-the ``eps_shift`` test passes.
+Counterpart of ``subpixal_tpu/align.py · align_images`` on one device:
+measure per-source displacements between each exposure and the combined
+(drizzled) reference, fit a sigma-clipped linear correction per exposure
+in the reference pixel frame, compose it into the per-exposure affine
+state, and repeat until the ``eps_shift`` test passes.
 
-* Setup: the initial drizzle's product feeds the host source finder,
+* Setup: the initial drizzle's product feeds the source finder — on CUDA
+  the device finder (:mod:`subpixal_tpu_torch.catalogs_device`, the
+  mosaic stays on the card and the primary cutouts come from the table
+  alone), on the CPU the host finder (``device_catalog`` picks) —
   primary cutouts fix the static cutout shape (with an oversized-footprint
   bucket for sources that outgrow it), and full-frame and per-cutout
   pixmaps into the reference frame are evaluated once — in float32 on
@@ -24,9 +26,13 @@ the ``eps_shift`` test passes.
   combined image at every (exposure, source) cutout grid (kernel B2),
   ``find_displacement`` (kernel B3 for ``usfac > 1`` under a small search
   box; ``torch.fft`` otherwise), the per-exposure fits, and the affine
-  composition.
+  composition. Under ``wcsupdate='otf'`` the reference is re-drizzled
+  before each exposure is measured, so later exposures align against
+  already-corrected ones.
 * The fixed-point loop keeps the state and a preallocated history on the
-  device and reads back only ``max_shift`` each iteration.
+  device and reads back only ``max_shift`` each iteration; the host loop
+  (``device_loop=False``, or ``verbose``) reads each iteration's fit back
+  and records (and prints) it.
 
 Branches of the JAX package that this slice does not port raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -47,6 +53,7 @@ from ._precision import full_f32
 from .blot import (compute_cutout_pixmaps_device_stack, compute_pixmap,
                    compute_pixmap_device_stack, device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
+from .catalogs_device import DeviceSourceCatalog
 from .cutout import create_primary_cutouts
 from .kernels.blot import sample_cutouts
 from .kernels.drizzle import drizzle_deposit_stack
@@ -54,7 +61,7 @@ from .kernels.measure import measure_window
 from .ops.correlate import find_displacement
 from .ops.cutouts import extract_cutouts
 from .ops.drizzle import drizzle_combine, kernel_reach
-from .ops.fit import iter_linear_fit
+from .ops.fit import LinearFitResult, iter_linear_fit
 from .ops.interp import sample_image
 from .resample import (Drizzle, Exposure, _not_in_slice,
                        exposure_pixel_weight, exposure_rate_data)
@@ -160,8 +167,6 @@ def _check_config(cfg: AlignConfig) -> None:
     if cfg.wcsupdate not in ("batch", "otf"):
         raise ValueError(f"wcsupdate must be 'batch'|'otf', "
                          f"got {cfg.wcsupdate!r}")
-    if cfg.wcsupdate == "otf":
-        raise _not_in_slice("wcsupdate='otf'", "A12")
     if cfg.sparse_deposit not in (True, False, "auto"):
         raise ValueError(f"sparse_deposit must be True|False|'auto', "
                          f"got {cfg.sparse_deposit!r}")
@@ -171,14 +176,10 @@ def _check_config(cfg: AlignConfig) -> None:
     if cfg.device_catalog not in ("auto", "device", "host"):
         raise ValueError(f"device_catalog must be 'auto'|'device'|'host', "
                          f"got {cfg.device_catalog!r}")
-    if cfg.device_catalog == "device":
-        raise _not_in_slice("device_catalog='device'", "A13")
     for flag, item in (("match_sky", "A10"), ("static_mask", "A10"),
                        ("reject_cr", "A10")):
         if getattr(cfg, flag):
             raise _not_in_slice(f"{flag}=True", item)
-    if cfg.device_loop is False:
-        raise _not_in_slice("device_loop=False (the host loop)", "A12")
     if cfg.use_pallas is False:
         raise ValueError("use_pallas=False has no counterpart in the port: "
                          "CUDA tensors always take the CUDA kernels")
@@ -200,6 +201,65 @@ def _affine_apply_grid(M, t, gx, gy):
 def _affine_apply_pts(M, t, pts):
     """(E,2,2), (E,2), (E,N,2) -> (E,N,2)."""
     return torch.einsum("eij,enj->eni", M, pts) + t[:, None, :]
+
+
+class _PrimMeta:
+    """Shape, id, position and flux of one primary cutout without its
+    pixels: on the device-catalog path the mosaic never reaches the host,
+    and setup reads only these four attributes (``.data`` is an
+    allocation-free broadcast view, there for ``.data.shape``)."""
+
+    __slots__ = ("data", "src_id", "src_pos_parent", "src_weight")
+
+    def __init__(self, shape, src_id, pos, weight):
+        self.data = np.broadcast_to(np.float32(0.0), shape)
+        self.src_id = src_id
+        self.src_pos_parent = pos
+        self.src_weight = weight
+
+
+def _prim_meta_from_catalog(cat, out_shape, pad: int = 1,
+                            min_box_size: int = 8, max_box_size: int = 512):
+    """Primary-cutout metadata from a catalog table's bbox columns: the
+    box sizing and rejections of
+    :func:`~subpixal_tpu_torch.cutout.create_primary_cutouts` (footprint
+    plus ``pad``, min/max box size, no-overlap skip) without image pixels."""
+    Hs, Ws = out_shape
+    n = len(cat)
+    ids = (np.asarray(cat["id"], int) if "id" in cat
+           else np.arange(1, n + 1))
+    xs = np.asarray(cat["x"], float)
+    ys = np.asarray(cat["y"], float)
+    flux = np.asarray(cat["flux"], float) if "flux" in cat else np.ones(n)
+    has_bb = all(k in cat for k in ("xmin", "xmax", "ymin", "ymax"))
+    out = []
+    for k in range(n):
+        if has_bb and int(np.asarray(cat["ymax"])[k]) >= 0:
+            fy0 = int(np.asarray(cat["ymin"])[k])
+            fy1 = int(np.asarray(cat["ymax"])[k])
+            fx0 = int(np.asarray(cat["xmin"])[k])
+            fx1 = int(np.asarray(cat["xmax"])[k])
+            y0 = fy0 - pad
+            x0 = fx0 - pad
+            h = fy1 - y0 + 1 + pad
+            w = fx1 - x0 + 1 + pad
+            if h < min_box_size or w < min_box_size:
+                cy, cx = (fy0 + fy1) / 2, (fx0 + fx1) / 2
+                h = w = max(h, w, min_box_size)
+                y0 = int(round(cy)) - h // 2
+                x0 = int(round(cx)) - w // 2
+            if h > max_box_size or w > max_box_size:
+                continue  # an absurd footprint (blended junk)
+        else:
+            y0 = int(round(ys[k])) - min_box_size // 2
+            x0 = int(round(xs[k])) - min_box_size // 2
+            h = w = min_box_size
+        if y0 >= Hs or x0 >= Ws or y0 + h <= 0 or x0 + w <= 0:
+            continue  # no overlap with the reference
+        out.append(_PrimMeta((h, w), int(ids[k]), (float(xs[k]),
+                                                   float(ys[k])),
+                             float(flux[k])))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -384,6 +444,10 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
           track_corr: bool = False):
     """One iteration: re-drizzle, blot, measure, fit, compose.
 
+    Under ``wcsupdate='otf'`` with more than one exposure the reference is
+    re-drizzled with the current state before each exposure is measured
+    and fitted, and that exposure's state is updated before the next.
+
     Returns ``(newM, newt, info)``; ``info`` holds the per-exposure fit
     (G_M, G_t, rms, rmse, mae, nmatches), ``max_shift`` (the eps_shift
     metric), the kernels' ``escaped`` counts and, with ``track_corr``
@@ -392,15 +456,17 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
     staleness signal."""
     E, N = a.cut_px.shape[:2]
 
-    # ---- 1. re-drizzle every exposure with its current correction, the
-    # whole stack in one deposit ----
-    px, py = _affine_apply_grid(Ms, ts, a.dri_px, a.dri_py)
-    sci, wht, escaped = drizzle_deposit_stack(
-        a.exp_data, a.exp_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
-        pscale_ratio=dri_ratios, kernel=cfg.kernel)
-    drz = drizzle_combine(sci, wht)
+    def drizzle_all(M_, t_):
+        """The combined reference at state (M_, t_): every exposure
+        re-drizzled with its correction, the whole stack in one deposit."""
+        px, py = _affine_apply_grid(M_, t_, a.dri_px, a.dri_py)
+        sci, wht, esc = drizzle_deposit_stack(
+            a.exp_data, a.exp_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
+            pscale_ratio=dri_ratios, kernel=cfg.kernel)
+        return drizzle_combine(sci, wht), esc
 
-    def measure_set(Mi, ti, cpx, cpy, img, mk0, seg, hw, slot_valid=None):
+    def measure_set(drz, Mi, ti, cpx, cpy, img, mk0, seg, hw,
+                    slot_valid=None):
         """Displacements of one cutout set (k, n, hh, ww) vs ``drz``."""
         k, n = cpx.shape[:2]
         hh, ww = hw
@@ -426,24 +492,26 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
         return (dxy, d.fit_ok.reshape(k, n), d.peak.reshape(k, n),
                 esc_pn.sum(1, dtype=torch.int32))
 
-    # ---- 2-3. blot + measure every (exposure, source) cutout ----
-    dxy, meas_ok, peak, blot_esc = measure_set(
-        Ms, ts, a.cut_px, a.cut_py, a.img_cut, a.img_msk, a.seg_cut,
-        cut_shape)
-    escaped = escaped + blot_esc
-    if big_shape is not None:
+    def measure(drz, M_, t_, sel=slice(None)):
+        """Blot + measure the cutouts of exposures ``sel`` (a slice) vs
+        ``drz``, the oversized bucket included."""
+        dxy, meas_ok, peak, esc = measure_set(
+            drz, M_[sel], t_[sel], a.cut_px[sel], a.cut_py[sel],
+            a.img_cut[sel], a.img_msk[sel], a.seg_cut[sel], cut_shape)
+        if big_shape is None:
+            return dxy, meas_ok, peak, esc
         # oversized-footprint bucket: sources whose footprint exceeds the
         # base cutout are re-measured whole at a second static shape and
         # override their base rows through a one-hot product (an
         # index_put_ with padded duplicate indices has no defined order)
         cpx, cpy, bimg, bmsk, bseg, bidx, bval = a.big
-        dxyB, okB, pkB, escB = measure_set(Ms, ts, cpx, cpy, bimg, bmsk,
-                                           bseg, big_shape, slot_valid=bval)
-        escaped = escaped + escB
-        sel = ((bidx[:, None] == torch.arange(N, device=bidx.device)[None])
-               & bval[:, None])                               # (NB, N)
-        selF = sel.to(torch.float32)
-        anyb = sel.any(dim=0)                                 # (N,)
+        dxyB, okB, pkB, escB = measure_set(
+            drz, M_[sel], t_[sel], cpx[sel], cpy[sel], bimg[sel], bmsk[sel],
+            bseg[sel], big_shape, slot_valid=bval)
+        sel_b = ((bidx[:, None] == torch.arange(N, device=bidx.device)[None])
+                 & bval[:, None])                             # (NB, N)
+        selF = sel_b.to(torch.float32)
+        anyb = sel_b.any(dim=0)                               # (N,)
         dxy = torch.where(anyb[None, :, None],
                           torch.einsum("bn,ebk->enk", selF, dxyB), dxy)
         meas_ok = torch.where(
@@ -452,24 +520,61 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
             meas_ok)
         peak = torch.where(anyb[None, :],
                            torch.einsum("bn,eb->en", selF, pkB), peak)
+        return dxy, meas_ok, peak, esc + escB
 
-    # ---- 4. per-exposure sigma-clipped fit in the reference frame ----
-    # displacement in ref-frame px: duv = (M_e @ J_{e,n}) @ d_{e,n}; the
-    # fit G maps the measured positions xy0 + duv back onto xy0, so the
-    # true fixed point d = 0 gives G = I
-    MJ = torch.einsum("eij,enjk->enik", Ms, a.jac)
-    duv = torch.einsum("enik,enk->eni", MJ, dxy)
-    uv = a.xy0 + duv
-    wgt = (a.src_valid & meas_ok & (peak > 0)).to(torch.float32)
-    if cfg.use_weights:
-        wgt = wgt * a.src_w
-    fit = iter_linear_fit(uv, a.xy0, wgt, fitgeom=cfg.fitgeom,
-                          nclip=cfg.nclip, sigma=cfg.sigma)
+    def fit_weights(valid, meas_ok, peak, src_w):
+        w = (valid & meas_ok & (peak > 0)).to(torch.float32)
+        return w * src_w if cfg.use_weights else w
+
+    if cfg.wcsupdate == "otf" and E > 1:
+        # update as you go: each exposure is measured against the
+        # reference rebuilt with every earlier exposure's update of this
+        # iteration. The state at exposure e's measurement is still its
+        # iteration-start (Ms[e], ts[e]) — only other exposures' updates
+        # moved the reference — so these fits are the iteration's fits
+        uv_l, w_l, fit_l, esc_l = [], [], [], []
+        cur_M, cur_t = Ms, ts
+        for e in range(E):
+            drz, driz_esc = drizzle_all(cur_M, cur_t)
+            dxy_e, ok_e, pk_e, esc_e = measure(drz, cur_M, cur_t,
+                                               slice(e, e + 1))
+            esc_l.append(esc_e[0] + driz_esc[e])
+            MJ_e = torch.einsum("ij,njk->nik", Ms[e], a.jac[e])
+            uv_e = a.xy0[e] + torch.einsum("nik,nk->ni", MJ_e, dxy_e[0])
+            w_e = fit_weights(a.src_valid[e], ok_e[0], pk_e[0], a.src_w[e])
+            fit_e = iter_linear_fit(uv_e[None], a.xy0[e][None], w_e[None],
+                                    fitgeom=cfg.fitgeom, nclip=cfg.nclip,
+                                    sigma=cfg.sigma)
+            newMe = fit_e.matrix[0] @ Ms[e]
+            newte = fit_e.matrix[0] @ ts[e] + fit_e.shift[0]
+            cur_M = torch.cat([cur_M[:e], newMe[None], cur_M[e + 1:]])
+            cur_t = torch.cat([cur_t[:e], newte[None], cur_t[e + 1:]])
+            uv_l.append(uv_e)
+            w_l.append(w_e)
+            fit_l.append(fit_e)
+        uv = torch.stack(uv_l)
+        wgt = torch.stack(w_l)
+        fit = LinearFitResult(*(torch.cat(parts) for parts in zip(*fit_l)))
+        newM, newt = cur_M, cur_t
+        escaped = torch.stack(esc_l)
+    else:
+        drz, escaped = drizzle_all(Ms, ts)
+        dxy, meas_ok, peak, blot_esc = measure(drz, Ms, ts)
+        escaped = escaped + blot_esc
+        # ---- per-exposure sigma-clipped fit in the reference frame ----
+        # displacement in ref-frame px: duv = (M_e @ J_{e,n}) @ d_{e,n};
+        # the fit G maps the measured positions xy0 + duv back onto xy0,
+        # so the true fixed point d = 0 gives G = I
+        MJ = torch.einsum("eij,enjk->enik", Ms, a.jac)
+        uv = a.xy0 + torch.einsum("enik,enk->eni", MJ, dxy)
+        wgt = fit_weights(a.src_valid, meas_ok, peak, a.src_w)
+        fit = iter_linear_fit(uv, a.xy0, wgt, fitgeom=cfg.fitgeom,
+                              nclip=cfg.nclip, sigma=cfg.sigma)
+        newM = torch.einsum("eij,ejk->eik", fit.matrix, Ms)
+        newt = torch.einsum("eij,ej->ei", fit.matrix, ts) + fit.shift
     G_M, G_t = fit.matrix, fit.shift
-    newM = torch.einsum("eij,ejk->eik", G_M, Ms)
-    newt = torch.einsum("eij,ej->ei", G_M, ts) + G_t
 
-    # ---- 5. eps_shift metric: rms incremental source motion, with the
+    # ---- eps_shift metric: rms incremental source motion, with the
     # common-mode motion of a multi-exposure stack projected out ----
     moved = _affine_apply_pts(G_M, G_t, uv) - uv
     if E > 1:
@@ -485,7 +590,7 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
                 nmatches=fit.nmatches, max_shift=rms_move.max(),
                 escaped=escaped)
     if track_corr:
-        # ---- 6. total correction magnitude: an upper bound on how far
+        # ---- total correction magnitude: an upper bound on how far
         # any cutout's blot window has moved from its setup position ----
         dM = newM - torch.eye(2, dtype=newM.dtype, device=newM.device)[None]
         dpts = torch.einsum("eij,enj->eni", dM, a.xy0) + newt[:, None, :]
@@ -526,10 +631,13 @@ def align_images(
     a :class:`~subpixal_tpu_torch.resample.Drizzle` holding the
     exposures, or pass ``exposures=`` and one is built on ``device``.
     ``catalogs`` may be an :class:`ImageCatalog` (or a list of them) for
-    the reference image; ``None`` runs the host source finder on the
-    first drizzle product. ``device`` ('cuda' by default) runs the loop;
-    a given ``resample`` must live on the same device. Input exposures
-    are not mutated: corrected copies are returned.
+    the reference image; ``None`` runs a source finder on the first
+    drizzle product: under ``device_catalog='auto'`` the device finder on
+    CUDA and the host finder on the CPU (``'device'`` / ``'host'`` force
+    one). ``device`` ('cuda' by default) runs the loop; a given
+    ``resample`` must live on the same device. ``verbose`` runs the host
+    loop and prints each iteration's records as JSON. Input exposures are
+    not mutated: corrected copies are returned.
     """
     if config is None:
         config = AlignConfig(
@@ -540,9 +648,6 @@ def align_images(
     cfg = config
     if mesh is not None:
         raise _not_in_slice("align_images(mesh=...)", "A15")
-    if verbose:
-        raise _not_in_slice("verbose per-iteration printing (the host "
-                            "loop)", "A12")
     _check_config(cfg)
     dev = torch.device(device)
 
@@ -572,12 +677,28 @@ def align_images(
     resample.execute()
     ref_wcs = resample.output_wcs
     out_shape = resample.output_shape
-    drz_sci = resample.output_sci
     t = _mark("resample_execute", t)
+    # the default catalog on the device finder ('auto': on CUDA, as the
+    # JAX package takes it on any accelerator): the drizzled reference
+    # never crosses to the host
+    use_dev_catalog = catalogs is None and (
+        cfg.device_catalog == "device"
+        or (cfg.device_catalog == "auto" and dev.type == "cuda"))
+    if use_dev_catalog:
+        drz_sci = None
+        drz_sci_dev = drizzle_combine(resample._sci_acc, resample._wht_acc,
+                                      fill=resample.fillval)
+    else:
+        drz_sci = resample.output_sci
+    t = _mark("output_sci", t)
 
     if catalogs is None:
-        cat_list = [ImageSourceCatalog(drz_sci, nsigma=cfg.catalog_nsigma,
-                                       npixels=cfg.catalog_npixels)]
+        cat_list = [DeviceSourceCatalog(
+            drz_sci_dev, nsigma=cfg.catalog_nsigma,
+            npixels=cfg.catalog_npixels, max_sources=cfg.catalog_max_sources,
+            window=cfg.catalog_window) if use_dev_catalog
+            else ImageSourceCatalog(drz_sci, nsigma=cfg.catalog_nsigma,
+                                    npixels=cfg.catalog_npixels)]
     elif isinstance(catalogs, (list, tuple)):
         cat_list = list(catalogs)
     else:
@@ -585,7 +706,10 @@ def align_images(
     if not cat_list:
         raise ValueError("catalogs must not be an empty sequence")
     cats = [c.catalog for c in cat_list]
-    seg_planes = [c.segmentation for c in cat_list]
+    # device-resident segmentation planes are preferred (no host copy)
+    seg_planes = [c.segmentation_device
+                  if getattr(c, "segmentation_device", None) is not None
+                  else c.segmentation for c in cat_list]
     t = _mark("catalog", t)
     have_seg = any(s is not None for s in seg_planes)
     n_tot = sum(len(c) for c in cats)
@@ -596,10 +720,13 @@ def align_images(
     prim = []
     src_cat_l: list[int] = []
     for ci, (cat, seg_i) in enumerate(zip(cats, seg_planes)):
-        p_i = create_primary_cutouts(
-            cat, seg_i if seg_i is not None
-            else np.zeros(out_shape, np.int32),
-            drz_sci, ref_wcs, combine_seg_mask=False)
+        # the device catalog's cutouts come from its table alone: setup
+        # reads only their shapes, ids, positions and fluxes
+        p_i = _prim_meta_from_catalog(cat, out_shape) if use_dev_catalog \
+            else create_primary_cutouts(
+                cat, seg_i if seg_i is not None
+                else np.zeros(out_shape, np.int32),
+                drz_sci, ref_wcs, combine_seg_mask=False)
         prim.extend(p_i)
         src_cat_l.extend([ci] * len(p_i))
     if len(prim) < cfg.min_sources:
@@ -691,8 +818,6 @@ def align_images(
     wht_planes: list = [None] * E
     dri_maps: list = []
     ra_cat, dec_cat = ref_wcs.pixel_to_world(xy_cat[:, 0], xy_cat[:, 1])
-    seg_f = np.stack([np.zeros(out_shape, np.float32) if s is None
-                      else np.asarray(s, np.float32) for s in seg_planes])
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
 
     def corner_bboxes(e, bx, by, hh, ww, rows=slice(None)):
@@ -793,7 +918,14 @@ def align_images(
         dri_px_t, dri_py_t = compute_pixmap_device_stack(
             [e.wcs for e in exps], ref_wcs, exps[0].data.shape, device=dev)
         t = _mark("frame_pixmaps", t)
-    seg_f_t = to_dev(seg_f)
+    # (C, H, W) per-catalog segmentation planes as float32 on the device
+    # (ids below 2**24 are exact); a device plane stays where it is
+    seg_f_t = torch.stack([
+        torch.zeros(out_shape, dtype=torch.float32, device=dev) if sp is None
+        else torch.as_tensor(sp if isinstance(sp, torch.Tensor)
+                             else np.ascontiguousarray(sp)).to(
+                                 device=dev, dtype=torch.float32)
+        for sp in seg_planes])
     src_ids_t = to_dev(src_ids)
     src_cat_t = to_dev(src_cat, torch.int32)
     seg_ok_t = to_dev(seg_ok, torch.bool)
@@ -946,10 +1078,37 @@ def align_images(
                 "larger cutout_shape) for exact results.", stacklevel=3)
         return False
 
+    def make_recs(it, h, iter_s):
+        """One iteration's per-exposure records from its fit (host)."""
+        return [ImageAlignInfo(
+            name=exps[e].name, iteration=it,
+            shift=tuple(map(float, h["G_t"][e])),
+            matrix=tuple(tuple(map(float, row)) for row in h["G_M"][e]),
+            rms=tuple(map(float, h["rms"][e])), rmse=float(h["rmse"][e]),
+            mae=float(h["mae"][e]), nmatches=int(h["nmatches"][e]),
+            iter_s=iter_s, escaped=int(h["escaped"][e])) for e in range(E)]
+
+    def record(recs):
+        if cfg.history == "all" or not hist:
+            hist.append(recs)
+        else:
+            hist[-1] = recs
+
+    # 'auto' runs the device loop unless verbose, which needs the host loop
+    dev_loop = (not verbose) if cfg.device_loop == "auto" \
+        else bool(cfg.device_loop)
+    if dev_loop and verbose:
+        warnings.warn(
+            "device_loop=True is incompatible with verbose per-iteration "
+            "printing; falling back to the host loop", stacklevel=2)
+        dev_loop = False
+
     # ------------------------------------------------------------------ #
-    # fixed-point iteration: state and history stay on the device; only
-    # max_shift is read back each iteration. A sparse self-heal re-enters
-    # the loop from the current state (convergence reached on stale
+    # fixed-point iteration. The device loop keeps the state and history
+    # on the device and reads back only max_shift each iteration; the
+    # host loop reads each iteration's fit back, records it, polices the
+    # sparse live set and then tests eps_shift. A sparse self-heal
+    # re-enters from the current state (convergence reached on stale
     # deposits is not trusted).
     # ------------------------------------------------------------------ #
     T = int(cfg.max_iterations)
@@ -958,9 +1117,10 @@ def align_images(
     z = dict(device=dev)
     eps = np.float32(cfg.eps_shift)
     hist: list[list[ImageAlignInfo]] = []
+    fit_keys = ("G_M", "G_t", "rms", "rmse", "mae", "nmatches", "escaped")
     n_iter = 0
     converged = False
-    while True:
+    while dev_loop:
         hist_d = dict(
             G_M=torch.zeros((T, E, 2, 2), **z),
             G_t=torch.zeros((T, E, 2), **z), rms=torch.zeros((T, E, 2), **z),
@@ -985,25 +1145,36 @@ def align_images(
         iter_s = (time.time() - t_it) / max(n_new, 1)
         h_np = {k: v[:n_new].cpu().numpy() for k, v in hist_d.items()}
         for it in range(n_new):
-            recs = [ImageAlignInfo(
-                name=exps[e].name, iteration=n_iter + it,
-                shift=tuple(map(float, h_np["G_t"][it, e])),
-                matrix=tuple(tuple(map(float, row))
-                             for row in h_np["G_M"][it, e]),
-                rms=tuple(map(float, h_np["rms"][it, e])),
-                rmse=float(h_np["rmse"][it, e]),
-                mae=float(h_np["mae"][it, e]),
-                nmatches=int(h_np["nmatches"][it, e]), iter_s=iter_s,
-                escaped=int(h_np["escaped"][it, e])) for e in range(E)]
-            if cfg.history == "all" or not hist:
-                hist.append(recs)
-            else:
-                hist[-1] = recs
+            record(make_recs(n_iter + it,
+                             {k: h_np[k][it] for k in fit_keys}, iter_s))
         n_iter += n_new
         if sparse is None or not sparse_heal_or_warn(
-                float(h_np["max_corr"].max()) if n_new else 0.0,
-                n_iter - 1):
+                float(h_np["max_corr"].max()) if n_new else 0.0, n_iter - 1):
             break
+    while not dev_loop:
+        healed = False
+        for _ in range(T):
+            t_it = time.time()
+            Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios,
+                                 big_hw, args, Ms, ts,
+                                 track_corr=sparse is not None)
+            h = {k: info[k].cpu().numpy() for k in fit_keys}
+            recs = make_recs(n_iter, h, time.time() - t_it)  # incl. the read
+            n_iter += 1
+            record(recs)
+            if verbose:
+                for r in recs:
+                    print(r.to_json())
+            if sparse is not None and sparse_heal_or_warn(
+                    float(info["max_corr"]), n_iter - 1):
+                healed = True
+                break
+            if float(info["max_shift"]) < cfg.eps_shift:
+                converged = True
+                break
+        if not healed:
+            break
+        converged = False
 
     # ------------------------------------------------------------------ #
     # write the corrections back into the WCSs (host)

@@ -144,13 +144,9 @@ def test_history_last_keeps_one_record():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(wcsupdate="otf"), "A12"),
-    (dict(device_catalog="device"), "A13"),
     (dict(match_sky=True), "A10"),
     (dict(static_mask=True), "A10"),
     (dict(reject_cr=True), "A10"),
-    (dict(device_loop=False), "A12"),
-    (dict(verbose=True), "A12"),
     (dict(mesh=object()), "A15"),
 ])
 def test_left_out_branches_raise(kw, item):

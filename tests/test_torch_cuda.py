@@ -493,7 +493,9 @@ def test_align_goes_through_kernels(card):
     assert kernels.LAUNCHES["drizzle_deposit"] == len(exps) + res.n_iterations
     assert kernels.LAUNCHES["blot_gather"] > 0
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
-    cpu = align_images(exposures=exps, device="cpu", max_iterations=1)
+    # the CPU run takes the device finder too ('auto' takes it on CUDA)
+    cpu = align_images(exposures=exps, device="cpu", max_iterations=1,
+                       device_catalog="device")
     for a, b in zip(res.history[0], cpu.history[0]):
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
 
@@ -512,7 +514,8 @@ def test_new_path_goes_through_all_kernels(card):
     assert kernels.LAUNCHES["drizzle_deposit"] == 3 + res.n_iterations
     assert "cutout_pixmaps" in res.setup_breakdown
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
-    cpu = align_images(device="cpu", max_iterations=1, **kw)
+    cpu = align_images(device="cpu", max_iterations=1,
+                       device_catalog="device", **kw)
     for a, b in zip(res.history[0], cpu.history[0]):
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
 
@@ -551,9 +554,89 @@ def test_sparse_deposit_on_card(card):
     res = align_images(device="cuda", **kw)
     assert res.setup_breakdown["sparse_live_frac"] < 0.85
     assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    cpu = align_images(device="cpu", **kw)
+    cpu = align_images(device="cpu", device_catalog="device", **kw)
     assert res.n_iterations == cpu.n_iterations
     for ra, rb in zip(res.history, cpu.history):
         for a, b in zip(ra, rb):
             assert a.nmatches == b.nmatches
             assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
+def _gauss(H, W):
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    return lambda x0, y0, amp, sig: amp * np.exp(
+        -((xx - x0) ** 2 + (yy - y0) ** 2) / (2 * sig * sig))
+
+
+def _finder_scenes(dev):
+    """(label, image on ``dev``, finder keywords): the 8 x 1024² stack's
+    drizzled reference (the main path's), a crowded deblend field and a
+    footprint that escalates the window."""
+    from subpixal_tpu_torch.ops.drizzle import drizzle_combine
+    from subpixal_tpu_torch.resample import Drizzle
+
+    exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                             seed=11)
+    drz = Drizzle(exps, device=dev)
+    drz.execute()
+    yield "8 x 1024² drizzled", drizzle_combine(drz._sci_acc, drz._wht_acc,
+                                                fill=drz.fillval), {}
+    rng = np.random.default_rng(9)
+    g = _gauss(96, 96)
+    crowded = (g(40.0, 48.0, 100.0, 2.0) + g(47.0, 50.0, 55.0, 2.0)
+               + g(70.0, 20.0, 80.0, 1.8) + g(70.0, 27.5, 60.0, 1.8)
+               + g(20.0, 75.0, 90.0, 2.0) + rng.normal(0, 0.05, (96, 96)))
+    yield "crowded deblend", torch.tensor(crowded, dtype=torch.float32,
+                                          device=dev), dict(threshold=1.0)
+    rng = np.random.default_rng(21)
+    g = _gauss(160, 160)
+    giant = (g(80.0, 78.0, 100.0, 12.0) + g(30.0, 30.0, 60.0, 1.8)
+             + g(130.0, 40.0, 70.0, 1.8) + rng.normal(0, 0.05, (160, 160)))
+    yield "window escalation", torch.tensor(
+        giant, dtype=torch.float32, device=dev), dict(threshold=1.0,
+                                                      deblend_nthresh=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["peaks", "ccl"])
+def test_device_finder_on_card_matches_cpu(card, method):
+    """The device finder on CUDA tensors against the same function on the
+    CPU: rows, areas, bboxes and segmentation planes equal, positions
+    within 1e-4 px, fluxes within 1e-5 relative."""
+    from subpixal_tpu_torch.catalogs_device import find_sources_device
+
+    for label, img, kw in _finder_scenes(card):
+        gc, gseg = find_sources_device(img, method=method, **kw)
+        cc, cseg = find_sources_device(img.cpu(), method=method, **kw)
+        assert gseg.device.type == "cuda" and len(gc) == len(cc) > 0, label
+        for col in ("id", "area", "xmin", "xmax", "ymin", "ymax"):
+            np.testing.assert_array_equal(gc[col], cc[col], err_msg=label)
+        for col in ("x", "y"):
+            assert np.abs(gc[col] - cc[col]).max() < 1e-4, (label, col)
+        np.testing.assert_allclose(gc["flux"], cc["flux"], rtol=1e-5)
+        assert torch.equal(gseg.cpu(), cseg), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dict(wcsupdate="otf"),
+                                  dict(device_loop=False)])
+def test_otf_and_host_loop_on_card(card, mode):
+    """'otf' (B1 once per exposure an iteration) and the host loop on the
+    card: one iteration equals the CPU run (the plain versions) with the
+    same finder. otf converges geometrically (every exposure is measured
+    against a reference that moved with the earlier ones' updates), so
+    both run 6 iterations."""
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    kw = dict(exposures=exps, fitgeom="shift", usfac=8, fit_type="gaussian",
+              device_catalog="device", **mode)
+    kernels.reset_launch_counts()
+    res = align_images(device="cuda", max_iterations=6, eps_shift=1e-9, **kw)
+    per_iter = 3 if mode.get("wcsupdate") == "otf" else 1
+    assert kernels.LAUNCHES["drizzle_deposit"] == 3 + per_iter * 6
+    assert kernels.LAUNCHES["blot_gather"] == per_iter * 6
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+    cpu = align_images(device="cpu", max_iterations=1, **kw)
+    for a, b in zip(res.history[0], cpu.history[0]):
+        assert a.nmatches == b.nmatches
+        assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
