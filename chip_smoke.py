@@ -23,9 +23,11 @@ failure):
    for all seven drizzle kernels at pixfrac 1.0 and 0.8 (every strip on
    the shared-memory path); the same frame rotated 30° (strips on the
    direct-atomics path); a stack of 8 × 256² planes at ratios 1.0, 0.5
-   and 2.0 for all seven kernels; the main path's stack of 8 × 1024² in
-   one launch; and that stack compacted to (8, L·16, 128) block columns,
-   as the sparse deposit stages it;
+   and 2.0 for all seven kernels, summed and with per-exposure output
+   planes; the main path's stack of 8 × 1024² in one launch, summed and
+   per-plane (the stacked ``Drizzle.execute``'s form; the planes' sum
+   also held to the summed launch); and that stack compacted to
+   (8, L·16, 128) block columns, as the sparse deposit stages it;
 4. B2: the blot gather kernel against its plain version for all six
    interpolants on 512 cutouts of 32² (the shape the main path picks for
    its scene), 512 of 48² (the 48² path's) and 16 of 256² (the oversized
@@ -46,9 +48,9 @@ failure):
    ms on the card beside the CPU run and the host finder;
 7. the defaults' path: ``align_images`` on that stack for 4 iterations,
    with the kernels' launch counts set to 0 just before and read just
-   after (B1 and B2 must have run, B1 once per exposure at setup and
-   once per iteration), and a spy on the device finder, which 'auto'
-   must have run on the card; the fit error against the planted shifts
+   after (B1 and B2 must have run, B1 once at setup, the stacked
+   execute's per-plane launch, and once per iteration), and a spy on
+   the device finder, which 'auto' must have run on the card; the fit error against the planted shifts
    must be under 10 mpix, and the first iteration's shifts must agree
    within 1e-3 px with the same run forced through the plain versions on
    the card. A second call of the same run gives the steady-state time
@@ -71,7 +73,21 @@ failure):
     iteration, with the same checks;
 12. the host-loop path: phase 9's configuration with
     ``device_loop=False`` for 2 iterations, with the same checks; its
-    shifts must follow phase 9's device loop within 1e-4 px.
+    shifts must follow phase 9's device loop within 1e-4 px;
+13. the pipeline path: the phase 7 scene with per-exposure sky offsets,
+    dead pixels shared by all exposures, planted cosmic-ray hits and half
+    the exposures in counts, written as 4 gzip'd FITS files of two SCI
+    chips each with WHT extensions, through ``align_fits`` with
+    ``match_sky``, ``static_mask`` and ``reject_cr`` on and phase 9's
+    configuration for 4 iterations: B1 twice at setup (the execute and
+    the re-drizzle after the CR rejection) and once per iteration, B2
+    and B3 as on the new path; fit error under 10 mpix; every planted
+    hit and dead pixel at weight 0; the first iteration within 1e-3 px
+    of the same run through the plain versions; the rewritten headers
+    reload to the returned WCSs and the state file reloads. The stages'
+    tensor branches on device-resident exposures are held to their host
+    branches on the card (skies within 1e-4, equal static masks, the
+    planted hits flagged by both, CR totals within 2).
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -179,21 +195,24 @@ def device_us(fn, key, reps=20):
     """Device microseconds per launch of the kernels whose name holds
     ``key``, from ``torch.profiler`` over ``reps`` back-to-back calls of
     ``fn`` (after one warm-up call); pass a :func:`rotating` ``fn`` to
-    time launches that read their inputs from device memory."""
+    time launches that read their inputs from device memory. A trace in
+    which the profiler recorded none of them (CUPTI drops one now and
+    then) is taken again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if key in e.key]
-    n = sum(e.count for e in ev)
-    if n == 0:
-        raise AssertionError(f"the profiler saw no launch of {key!r}")
-    return sum(e.self_device_time_total for e in ev) / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if key in e.key]
+        n = sum(e.count for e in ev)
+        if n:
+            return sum(e.self_device_time_total for e in ev) / n
+    raise AssertionError(f"the profiler saw no launch of {key!r}")
 
 
 def _rel_err(got, want):
@@ -223,9 +242,13 @@ def _deposit_planes(dev, E, H, W, rot_deg, ratios, seed):
             for k, v in out.items()}
 
 
-def _b1_check(t, oshape, ratios, kernel, pixfrac, label, direct=None):
+def _b1_check(t, oshape, ratios, kernel, pixfrac, label, direct=None,
+              per_plane=False):
     """Kernel vs plain stack; ``direct`` (None: any) is whether strips
-    must take the direct-atomics path. Returns the max abs error."""
+    must take the direct-atomics path; ``per_plane`` checks the launch
+    that keeps each plane's accumulators (every plane against the plain
+    version's, and their sum against the summed launch). Returns the max
+    abs error."""
     import torch
 
     from subpixal_tpu_torch.kernels.drizzle import _deposit_stack
@@ -233,13 +256,22 @@ def _b1_check(t, oshape, ratios, kernel, pixfrac, label, direct=None):
 
     n_direct = torch.zeros(1, dtype=torch.int32, device=t["d"].device)
     s, w, esc = _deposit_stack(t["d"], t["w"], t["x"], t["y"], oshape,
-                               pixfrac, ratios, kernel, n_direct)
+                               pixfrac, ratios, kernel, n_direct,
+                               per_plane=per_plane)
     ps, pw = drizzle_deposit_stack(t["d"], t["w"], t["x"], t["y"], oshape,
                                    pixfrac=pixfrac, pscale_ratio=ratios,
-                                   kernel=kernel)
-    torch.cuda.synchronize()
+                                   kernel=kernel, per_plane=per_plane)
     rs, as_ = _rel_err(s, ps)
     rw, aw = _rel_err(w, pw)
+    if per_plane:  # each plane, and the planes' sum vs the summed launch
+        rs = max(rs, max(_rel_err(s[e], ps[e])[0] for e in range(len(s))))
+        rw = max(rw, max(_rel_err(w[e], pw[e])[0] for e in range(len(w))))
+        ss, sw, _ = _deposit_stack(t["d"], t["w"], t["x"], t["y"], oshape,
+                                   pixfrac, ratios, kernel)
+        rs = max(rs, _rel_err(s.sum(0), ss)[0])
+        rw = max(rw, _rel_err(w.sum(0), sw)[0])
+        label = f"{label} per-plane"
+    torch.cuda.synchronize()
     nd = int(n_direct)
     print(f"B1 {label} {kernel:9s} pixfrac={pixfrac}: rel err sci {rs:.2e} "
           f"wht {rw:.2e}, escaped {int(esc.abs().sum())}, direct strips {nd}")
@@ -252,22 +284,23 @@ def _b1_check(t, oshape, ratios, kernel, pixfrac, label, direct=None):
     return max(as_, aw)
 
 
-def _b1_time(t, oshape, ratios, label):
+def _b1_time(t, oshape, ratios, label, per_plane=False):
     """Wrapper, device and plain times and the bound, square/pixfrac 1."""
     from subpixal_tpu_torch.kernels.drizzle import drizzle_deposit_stack
     from subpixal_tpu_torch.ops.drizzle import drizzle_deposit_stack as plain
 
     args = (t["d"], t["w"], t["x"], t["y"], oshape)
-    ms = cuda_ms(lambda: drizzle_deposit_stack(*args, pscale_ratio=ratios))
-    dev_us = device_us(rotating(lambda *a: drizzle_deposit_stack(
-        *a, pscale_ratio=ratios), *args), "deposit_tiles")
-    plain_ms = cuda_ms(lambda: plain(*args, pscale_ratio=ratios), reps=5,
-                       warmup=1)
-    # data, weight, x, y read; sci, wht written; ~20 flops for each of
-    # the K x K = 4 cells a pixel meets at square/pixfrac 1
+    kw = dict(pscale_ratio=ratios, per_plane=per_plane)
+    ms = cuda_ms(lambda: drizzle_deposit_stack(*args, **kw))
+    dev_us = device_us(rotating(lambda *a: drizzle_deposit_stack(*a, **kw),
+                                *args), "deposit_tiles")
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=5, warmup=1)
+    # data, weight, x, y read; sci, wht written (one pair, or one per
+    # plane); ~20 flops for each of the K x K = 4 cells a pixel meets at
+    # square/pixfrac 1
     npix = t["d"].numel()
-    bound_ms, by = bound(4 * (4 * npix + 2 * oshape[0] * oshape[1]),
-                         20 * 4 * npix)
+    n_out = (t["d"].shape[0] if per_plane else 1) * oshape[0] * oshape[1]
+    bound_ms, by = bound(4 * (4 * npix + 2 * n_out), 20 * 4 * npix)
     print(f"B1 {label}: wrapper {ms:.4f} ms, device {dev_us:.3f} us per "
           f"launch, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
           f"{bound_ms * 1e3 / dev_us:.1%} of it reached)")
@@ -300,11 +333,19 @@ def phase_b1(dev):
         for pixfrac in (1.0, 0.8):
             worst = max(worst, _b1_check(tm, (540, 540), mixed, kernel,
                                          pixfrac, "8 x 256² mixed ratios"))
-    # the main path's stack: 8 exposures of 1024², ratio 1, one launch
+        worst = max(worst, _b1_check(tm, (540, 540), mixed, kernel, 0.8,
+                                     "8 x 256² mixed ratios",
+                                     per_plane=True))
+    # the main path's stack: 8 exposures of 1024², ratio 1, one launch;
+    # per-plane on the align paths' reference grid, as Drizzle.execute
     ones = (1.0,) * 8
     t8 = _deposit_planes(dev, 8, 1024, 1024, 0.3, ones, 4)
     worst = max(worst, _b1_check(t8, oshape, ones, "square", 1.0,
                                  "8 x 1024² stack", direct=False))
+    for kernel in ("square", "lanczos3"):
+        worst = max(worst, _b1_check(t8, (1028, 1027), ones, kernel, 1.0,
+                                     "8 x 1024² stack", direct=False,
+                                     per_plane=True))
     # compacted as the sparse deposit stages it: half of each frame's
     # 16 x 128 blocks, (8, 256·16, 128) block columns
     rng = np.random.default_rng(5)
@@ -321,6 +362,9 @@ def phase_b1(dev):
     times = [_b1_time({k: v[:1] for k, v in t1.items()}, oshape, (1.0,),
                       "1024², square, pixfrac 1"),
              _b1_time(t8, oshape, ones, "8 x 1024² stack, square, pixfrac 1"),
+             _b1_time(t8, (1028, 1027), ones,
+                      "8 x 1024² stack per-plane to (8, 1028, 1027), "
+                      "square, pixfrac 1", per_plane=True),
              _b1_time(tc, oshape, ones,
                       "8 x (256·16, 128) compacted, square, pixfrac 1")]
     for r in times:
@@ -589,6 +633,26 @@ def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False):
                               device=x.device)
 
 
+def _plain_versions():
+    """Patches under which the align path (setup drizzle, loop) runs the
+    kernels' plain versions on the card."""
+    from contextlib import ExitStack
+
+    from subpixal_tpu_torch import align as align_mod
+    from subpixal_tpu_torch import resample as resample_mod
+    from subpixal_tpu_torch.ops.correlate import measure_window
+
+    stack = ExitStack()
+    for mod, name, fn in (
+            (align_mod, "drizzle_deposit_stack", _plain_deposit_stack),
+            (align_mod, "sample_cutouts", _plain_gather),
+            (align_mod, "measure_window", measure_window),
+            (resample_mod, "drizzle_deposit", _plain_deposit),
+            (resample_mod, "drizzle_deposit_stack", _plain_deposit_stack)):
+        stack.enter_context(mock.patch.object(mod, name, fn))
+    return stack
+
+
 def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
                 finder="device", **config):
     """align_images on 8 x 1024², 60 stars of width ``sigma``, ``iters``
@@ -604,9 +668,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
 
     from subpixal_tpu_torch import align as align_mod
     from subpixal_tpu_torch import catalogs_device, kernels
-    from subpixal_tpu_torch import resample as resample_mod
     from subpixal_tpu_torch.align import align_images
-    from subpixal_tpu_torch.ops.correlate import measure_window
     from subpixal_tpu_torch.testing import (pairwise_shift_errors,
                                             simulate_stack)
 
@@ -654,12 +716,13 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
-    # B1: one launch per exposure for the initial drizzle, then the whole
-    # stack in one launch per iteration, or once per exposure under otf;
-    # under otf B2 (and B3) measure one exposure's set a launch
+    # B1: one per-plane launch for the initial drizzle (the stacked
+    # execute), then the whole stack in one launch per iteration, or once
+    # per exposure under otf; under otf B2 (and B3) measure one exposure's
+    # set a launch
     otf = config.get("wcsupdate") == "otf"
     per_iter = len(exps) if otf else 1
-    if launches["drizzle_deposit"] != len(exps) + per_iter * res.n_iterations:
+    if launches["drizzle_deposit"] != 1 + per_iter * res.n_iterations:
         raise AssertionError(f"{label}: {launches['drizzle_deposit']} B1 "
                              f"launches for {len(exps)} exposures and "
                              f"{res.n_iterations} iterations")
@@ -689,12 +752,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     print(f"{label}, second call: setup_breakdown " + json.dumps(
         {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
     # the same run forced through the plain versions on the card
-    with mock.patch.object(align_mod, "drizzle_deposit_stack",
-                           _plain_deposit_stack), \
-            mock.patch.object(align_mod, "sample_cutouts", _plain_gather), \
-            mock.patch.object(resample_mod, "drizzle_deposit",
-                              _plain_deposit), \
-            mock.patch.object(align_mod, "measure_window", measure_window):
+    with _plain_versions():
         res_p = align_images(max_iterations=1, **kw)
     d = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
             for a, b in zip(res.history[0], res_p.history[0]))
@@ -767,6 +825,198 @@ def phase_catalog(dev):
           f"{host_ms:.3f} ms ({n_host} sources)")
     return dict(device_ms=dev_ms, first_ms=cold_ms, cpu_ms=cpu_ms,
                 host_ms=host_ms, n=len(gc), n_host=n_host)
+
+
+def _quiet_spots(img, n, rng, taken=()):
+    """``n`` (y, x) pixels at least 50 px from the edges whose 9 x 9 box
+    holds only background (no star), apart from ``taken``."""
+    out = []
+    while len(out) < n:
+        y, x = (int(v) for v in rng.integers(50, img.shape[0] - 50, 2))
+        if (np.abs(img[y - 4:y + 5, x - 4:x + 5]).max() < 0.1
+                and all(abs(y - a) + abs(x - b) > 8 for a, b in
+                        list(taken) + out)):
+            out.append((y, x))
+    return out
+
+
+def _pipeline_files(root):
+    """Phase 7's scene as FITS files: 4 gzip'd files of two SCI chips
+    (exposures 2f, 2f + 1) with WHT extensions of ones. Each exposure gets
+    a sky level of its own (positive, as real skies are: the output grid's
+    uncovered border, filled with 0, must not stand above the matched
+    sky), 6 dead pixels (-5, in every exposure) and 3 cosmic-ray hits of
+    its own (+500); files 2 and 3 hold counts (BUNIT ELECTRONS),
+    files 0 and 1 rates, all with EXPTIMEs of 300-580 s. Returns (paths,
+    planted shifts, hits as (exposure, y, x), dead pixels)."""
+    import os
+
+    from subpixal_tpu_torch.fitswcs import wcs_to_header
+    from subpixal_tpu_torch.io.fits import HDU, Header, write_fits
+    from subpixal_tpu_torch.testing import simulate_stack
+
+    exps, planted = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                                   seed=11)
+    rng = np.random.default_rng(12)
+    dead = _quiet_spots(np.maximum.reduce([e.data for e in exps]), 6, rng)
+    hits = [(e, y, x) for e, ex in enumerate(exps)
+            for y, x in _quiet_spots(ex.data, 3, rng, dead)]
+    paths = []
+    for f in range(4):
+        hdus = [HDU()]
+        for c in range(2):
+            e = 2 * f + c
+            img = exps[e].data + np.float32(0.01 + 0.02 * e)  # sky
+            for y, x in dead:
+                img[y, x] = -5.0
+            for k, y, x in hits:
+                if k == e:
+                    img[y, x] += 500.0
+            t = 300.0 + 40.0 * e
+            h = Header()
+            for key, val in (("EXTNAME", "SCI"), ("EXTVER", c + 1),
+                             ("EXPTIME", t),
+                             ("BUNIT", "ELECTRONS" if f >= 2
+                              else "ELECTRONS/S")):
+                h[key] = val
+            wcs_to_header(exps[e].wcs, h)
+            hdus.append(HDU((img * np.float32(t) if f >= 2 else img)
+                            .astype(np.float32), h))
+            w = Header()
+            w["EXTNAME"], w["EXTVER"] = "WHT", c + 1
+            hdus.append(HDU(np.ones(img.shape, np.float32), w))
+        paths.append(os.path.join(root, f"visit{f}_flt.fits.gz"))
+        write_fits(paths[-1], hdus)
+    return paths, planted, hits, dead
+
+
+def phase_pipeline(dev):
+    """``align_fits`` on 4 gzip'd 2-chip files with the three AstroDrizzle
+    stages, phase 9's configuration, 4 iterations; then the stages'
+    tensor branches on device-resident copies of the exposures against
+    their host branches. Returns the launch counts and the result."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.fitswcs import wcs_from_hdul
+    from subpixal_tpu_torch.io.fits import read_fits
+    from subpixal_tpu_torch.pipeline import (AlignState, align_fits,
+                                             load_exposures)
+    from subpixal_tpu_torch.resample import Drizzle, Exposure
+    from subpixal_tpu_torch.testing import pairwise_shift_errors
+
+    kw = dict(wht_ext="WHT", device=dev, match_sky=True, static_mask=True,
+              reject_cr=True, fitgeom="shift", usfac=8, fit_type="gaussian",
+              max_iterations=4, eps_shift=1e-7)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        paths, planted, hits, dead = _pipeline_files(root)
+        spare = os.path.join(root, "spare")
+        os.mkdir(spare)
+        for p in paths:  # unaligned copies for the warm and plain runs
+            shutil.copy(p, spare)
+        copies = [os.path.join(spare, os.path.basename(p)) for p in paths]
+        print(f"pipeline: wrote {len(paths)} files "
+              f"({sum(os.path.getsize(p) for p in paths) / 2 ** 20:.1f} "
+              f"MiB gzip'd) in {time.time() - t0:.2f} s")
+        state = os.path.join(root, "state.json")
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        res = align_fits(paths, state_file=state, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        per = 2 if "big_bucket_stage" in res.setup_breakdown else 1
+        print(f"pipeline path: launches {launches}, wall {wall:.2f} s "
+              "(load, align, header write-back)")
+        if (launches["drizzle_deposit"] != 2 + res.n_iterations
+                or launches["blot_gather"] != per * res.n_iterations
+                or launches["measure_displacement"]
+                != per * res.n_iterations):
+            raise AssertionError(f"pipeline path: {launches} for "
+                                 f"{res.n_iterations} iterations")
+        err_mpix = 1e3 * pairwise_shift_errors(res.shifts, planted)
+        print(f"pipeline path: setup_s {res.setup_s:.3f}, "
+              f"{res.n_iterations} iterations at "
+              f"{1e3 * res.history[-1][0].iter_s:.3f} ms each, fit error "
+              f"{err_mpix:.3f} mpix, sources {res.history[0][0].nmatches}")
+        print("pipeline path: setup_breakdown " + json.dumps(
+            {k: round(v, 4) for k, v in res.setup_breakdown.items()}))
+        if res.n_iterations != 4 or not err_mpix < 10.0:
+            raise AssertionError(f"pipeline path: {res.n_iterations} "
+                                 f"iterations, error {err_mpix} mpix")
+        missed = [(e, y, x) for e, y, x in hits
+                  if res.exposures[e].weight[y, x] != 0]
+        missed += [(e, y, x) for y, x in dead
+                   for e in range(8) if res.exposures[e].weight[y, x] != 0]
+        print(f"pipeline path: {len(hits)} planted hits and {len(dead)} "
+              f"dead pixels, {len(missed)} left with weight")
+        if missed:
+            raise AssertionError(f"pipeline path: not masked: {missed}")
+        # the rewritten headers reload to the returned WCSs, the state too
+        for k, exp in enumerate(res.exposures):
+            w = wcs_from_hdul(read_fits(paths[k // 2]),
+                              ext=("SCI", k % 2 + 1), chip=k % 2 + 1)
+            for f in ("crpix", "crval", "cd"):
+                if not np.array_equal(getattr(w, f), getattr(exp.wcs, f)):
+                    raise AssertionError(f"pipeline path: header of "
+                                         f"{exp.name} reloads another {f}")
+        st = AlignState.load(state)
+        if st.n_iterations != res.n_iterations or not np.array_equal(
+                st.shifts, np.asarray(res.shifts).tolist()):
+            raise AssertionError("pipeline path: the state file differs")
+        warm = align_fits(copies, update_headers=False, **kw)
+        print(f"pipeline path, second call: setup_s {warm.setup_s:.3f}, "
+              f"{1e3 * warm.history[-1][0].iter_s:.3f} ms per iteration")
+        print("pipeline path, second call: setup_breakdown " + json.dumps(
+            {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
+        with _plain_versions():
+            res_p = align_fits(copies, update_headers=False,
+                               **dict(kw, max_iterations=1))
+        d = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+                for a, b in zip(res.history[0], res_p.history[0]))
+        print(f"pipeline path: first-iteration shifts vs plain versions: "
+              f"max |diff| {d:.3e} px")
+        if not d < 1e-3:
+            raise AssertionError(f"pipeline path: first iteration differs "
+                                 f"from the plain run by {d} px")
+        host = load_exposures(copies, wht_ext="WHT")
+    # the stages' tensor branches on device-resident exposures vs the host
+    # branches, both drizzling on the card
+    gpu = [Exposure(torch.tensor(e.data, device=dev), e.wcs,
+                    weight=torch.tensor(e.weight, device=dev),
+                    exptime=e.exptime, name=e.name, data_units=e.data_units)
+           for e in host]
+    hd, gd = Drizzle(host, device=dev), Drizzle(gpu, device=dev)
+    t0 = time.time()
+    sky_h = hd.match_sky()
+    mask_h = hd.apply_static_mask()
+    cr_h = hd.reject_cr()
+    host_s = time.time() - t0
+    t0 = time.time()
+    sky_g = gd.match_sky()
+    mask_g = gd.apply_static_mask()
+    cr_g = gd.reject_cr()
+    torch.cuda.synchronize()
+    dev_s = time.time() - t0
+    dsky = float(np.abs(sky_g - sky_h).max())
+    n_h = sum(int(m.sum()) for m in cr_h)
+    n_g = sum(int(m.sum()) for m in cr_g)
+    flagged = all(m[e][y, x] for m in (cr_h, cr_g) for e, y, x in hits)
+    print(f"pipeline stages, tensor vs host branches: skies max |d| "
+          f"{dsky:.2e}, static masks equal {np.array_equal(mask_g, mask_h)} "
+          f"({int(mask_h.sum())} px), CR flags {n_g} vs {n_h}, planted hits "
+          f"flagged by both {flagged}; {dev_s:.3f} s vs {host_s:.3f} s")
+    if not (dsky < 1e-4 and np.array_equal(mask_g, mask_h) and flagged
+            and abs(n_g - n_h) <= 2
+            and gd.exposures[0].weight.device.type == "cuda"):
+        raise AssertionError("the stages' tensor branches disagree with "
+                             "their host branches on the card")
+    return launches, res
 
 
 def profile_redrizzle(dev) -> None:
@@ -968,6 +1218,7 @@ def main() -> int:
         "host_loop": phase_align(dev, "host-loop path",
                                  tuple(kernels.LAUNCHES), iters=2,
                                  device_loop=False, **new),
+        "pipeline": phase_pipeline(dev),
     }
     # the reference's own bar between the finders (tests/test_align.py)
     d_fin = float(np.abs(runs["defaults"][1].shifts

@@ -9,14 +9,21 @@ and ``scipy``, and never ``jax`` or ``subpixal_tpu``.
 
 Module map (JAX package -> here):
   align                  -> align         (align_images: batch and otf,
-                                           device and host loop)
+                                           device and host loop, the
+                                           AstroDrizzle stages)
+  pipeline               -> pipeline      (load_exposures, align_fits,
+                                           AlignState)
   catalogs/device        -> catalogs_device (the device source finder,
                                            plain PyTorch)
   ops/*                  -> ops/*         (plain PyTorch)
   kernels/drizzle, blot,
   measure                -> kernels/*     (hand-written CUDA, csrc/*.cu)
   resample, blot, cutout -> resample, blot, cutout
-  catalogs, wcs/wcs      -> catalogs, wcs (host numpy, carried over)
+  cc, centroid           -> cc, centroid  (re-exports)
+  catalogs, wcs/wcs,
+  wcs/fitswcs, io/fits,
+  utils                  -> catalogs, wcs, fitswcs, io/fits, utils
+                                          (host numpy, carried over)
 """
 
 from .align import AlignConfig, AlignResult, ImageAlignInfo, align_images
@@ -27,7 +34,9 @@ from .kernels.measure import find_displacement
 from .ops.correlate import Displacement, cross_correlate
 from .ops.fit import LinearFitResult, apply_affine, iter_linear_fit
 from .ops.peaks import PeakFitResult, find_peak
-from .resample import Drizzle, Exposure, make_output_wcs
+from .fitswcs import wcs_from_hdul, wcs_from_header, wcs_to_header
+from .resample import Drizzle, Exposure, Resample, make_output_wcs
+from .utils import parse_file_name
 from .wcs import DistGrid, TanWCS, apply_tangent_affine
 
 __all__ = [
@@ -37,6 +46,7 @@ __all__ = [
     "Displacement", "cross_correlate", "find_displacement",
     "LinearFitResult", "apply_affine", "iter_linear_fit",
     "PeakFitResult", "find_peak",
-    "Drizzle", "Exposure", "make_output_wcs",
-    "DistGrid", "TanWCS", "apply_tangent_affine",
+    "Resample", "Drizzle", "Exposure", "make_output_wcs",
+    "DistGrid", "TanWCS", "apply_tangent_affine", "wcs_from_header",
+    "wcs_to_header", "wcs_from_hdul", "parse_file_name",
 ]

@@ -6,7 +6,10 @@ measure per-source displacements between each exposure and the combined
 in the reference pixel frame, compose it into the per-exposure affine
 state, and repeat until the ``eps_shift`` test passes.
 
-* Setup: the initial drizzle's product feeds the source finder — on CUDA
+* Setup: the AstroDrizzle stages when asked (``match_sky``,
+  ``static_mask``, and ``reject_cr`` after the initial drizzle, on copies
+  of the exposures), then the initial drizzle's product (one B1 launch
+  for a same-shape stack on CUDA) feeds the source finder — on CUDA
   the device finder (:mod:`subpixal_tpu_torch.catalogs_device`, the
   mosaic stays on the card and the primary cutouts come from the table
   alone), on the CPU the host finder (``device_catalog`` picks) —
@@ -63,8 +66,9 @@ from .ops.cutouts import extract_cutouts
 from .ops.drizzle import drizzle_combine, kernel_reach
 from .ops.fit import LinearFitResult, iter_linear_fit
 from .ops.interp import sample_image
-from .resample import (Drizzle, Exposure, _not_in_slice,
-                       exposure_pixel_weight, exposure_rate_data)
+from .resample import (Drizzle, Exposure, _exposure_stack_key,
+                       _not_in_slice, _stack_planes, _weight_parts,
+                       exposure_rate_data)
 from .wcs import apply_tangent_affine
 
 __all__ = ["align_images", "AlignConfig", "AlignResult", "ImageAlignInfo"]
@@ -176,10 +180,6 @@ def _check_config(cfg: AlignConfig) -> None:
     if cfg.device_catalog not in ("auto", "device", "host"):
         raise ValueError(f"device_catalog must be 'auto'|'device'|'host', "
                          f"got {cfg.device_catalog!r}")
-    for flag, item in (("match_sky", "A10"), ("static_mask", "A10"),
-                       ("reject_cr", "A10")):
-        if getattr(cfg, flag):
-            raise _not_in_slice(f"{flag}=True", item)
     if cfg.use_pallas is False:
         raise ValueError("use_pallas=False has no counterpart in the port: "
                          "CUDA tensors always take the CUDA kernels")
@@ -660,6 +660,10 @@ def align_images(
     elif resample.device != dev:
         raise ValueError(f"resample lives on {resample.device}, but "
                          f"device={dev}")
+    if cfg.match_sky or cfg.static_mask or cfg.reject_cr:
+        # the stages rebind data and weights: the caller's Exposure
+        # objects stay untouched
+        resample.exposures = [e.copy() for e in resample.exposures]
     exps = list(resample.exposures)
     if not exps:
         raise ValueError("no exposures to align")
@@ -673,11 +677,24 @@ def align_images(
 
     t_setup = time.time()
     t = t_setup
-    # -- initial reference image and its catalog(s) --------------------- #
+    # -- the AstroDrizzle stages and the initial reference image -------- #
+    # (each stage's time is its own key; the JAX package counts them in
+    # 'resample_execute')
+    if cfg.match_sky:
+        resample.match_sky(skymethod=cfg.skymethod)
+        t = _mark("match_sky", t)
+    if cfg.static_mask:
+        resample.apply_static_mask()
+        t = _mark("static_mask", t)
     resample.execute()
+    t = _mark("resample_execute", t)
+    if cfg.reject_cr and len(resample.exposures) >= 3:
+        resample.reject_cr()  # and the re-drizzle without the CRs
+        t = _mark("reject_cr", t)
+    for k, v in resample.last_execute_breakdown.items():
+        setup_breakdown[f"resample.{k}"] = round(v, 3)
     ref_wcs = resample.output_wcs
     out_shape = resample.output_shape
-    t = _mark("resample_execute", t)
     # the default catalog on the device finder ('auto': on CUDA, as the
     # JAX package takes it on any accelerator): the drizzled reference
     # never crosses to the host
@@ -813,7 +830,14 @@ def align_images(
     jac = np.zeros((E, N, 2, 2), np.float32)
     xy0 = np.zeros((E, N, 2), np.float32)
     src_valid = np.zeros((E, N), bool)
-    exp_data = np.zeros((E,) + exps[0].data.shape, np.float32)
+    shape0 = tuple(exps[0].data.shape)
+    # the rate-data stack the stacked execute just built for these same
+    # exposures (keyed on their identities) is reused on the device
+    ds = resample._data_stack
+    reuse_data = (ds is not None and ds.device == dev
+                  and resample._data_stack_key == _exposure_stack_key(exps)
+                  and tuple(ds.shape) == (E,) + shape0)
+    rate_planes: list = []
     wht_scalars = np.ones(E, np.float32)
     wht_planes: list = [None] * E
     dri_maps: list = []
@@ -833,15 +857,13 @@ def align_images(
             cut_bb[k][e, rows] = v
 
     for e, exp in enumerate(exps):
-        if exp.data.shape != exps[0].data.shape:
+        if tuple(exp.data.shape) != shape0:
             raise ValueError("all exposures must share one shape "
                              "(pad on ingest)")
-        exp_data[e] = exposure_rate_data(exp)
-        base_w, mask_w = exposure_pixel_weight(exp, resample.wht_type)
-        if (np.isscalar(base_w) or np.ndim(base_w) == 0) and mask_w is None:
-            wht_scalars[e] = float(base_w)
-        else:
-            wht_planes[e] = base_w if mask_w is None else base_w * mask_w
+        if not reuse_data:  # host arrays or tensors, as the exposure holds
+            rate_planes.append(exposure_rate_data(exp))
+        # weights in their own residence until they are stacked
+        wht_scalars[e], wht_planes[e] = _weight_parts(exp, resample.wht_type)
         H, W = exp.data.shape
         t = time.time()
         if host_frames:  # else one device evaluation after this loop
@@ -897,15 +919,16 @@ def align_images(
         return compute_cutout_pixmaps_device_stack(
             [e.wcs for e in exps], ref_wcs, blc, hw, device=dev)
 
-    exp_data_t = to_dev(exp_data)
+    exp_data_t = ds if reuse_data else _stack_planes(rate_planes, shape0,
+                                                      dev)
     if all(wp is None for wp in wht_planes):
         exp_wht_t = (torch.ones_like(exp_data_t)
                      * to_dev(wht_scalars)[:, None, None])
     else:
-        exp_wht_t = to_dev(np.stack([
-            np.full(exps[0].data.shape, wht_scalars[e], np.float32)
-            if wp is None else np.asarray(wp, np.float32)
-            for e, wp in enumerate(wht_planes)]))
+        exp_wht_t = _stack_planes(
+            [float(wht_scalars[e]) if wp is None
+             else wp * float(wht_scalars[e])
+             for e, wp in enumerate(wht_planes)], shape0, dev)
     if use_dev_cut:
         cut_px_t, cut_py_t = device_cutout_maps(blc_all, cut_shape)
         t = _mark("cutout_pixmaps", t)

@@ -314,8 +314,9 @@ class ImageCatalog:
 
 
 class ImageSourceCatalog(ImageCatalog):
-    """Catalog produced by the built-in host source finder
-    (``image``: a 2-D array)."""
+    """Catalog produced by the built-in host source finder. ``image`` is a
+    2-D array or a FITS path (with an optional ``[ext]`` spec: the first
+    HDU with data when none is given)."""
 
     def __init__(self, image, threshold: float | None = None,
                  nsigma: float = 3.0, npixels: int = 5,
@@ -328,11 +329,20 @@ class ImageSourceCatalog(ImageCatalog):
         self.connectivity = connectivity
 
     def _load_image(self) -> np.ndarray:
-        if isinstance(self._image_spec, str):
-            raise NotImplementedError(
-                "FITS image paths need the port of io/fits.py "
-                "(ROADMAP Queue A, A14); pass the image as an array")
-        return np.asarray(self._image_spec)
+        img = self._image_spec
+        if isinstance(img, str):
+            from .io.fits import read_fits
+            from .utils import parse_file_name
+
+            fname, ext = parse_file_name(img)
+            hdul = read_fits(fname)
+            if ext is None:
+                for h in hdul:
+                    if h.data is not None:
+                        return np.asarray(h.data)
+                raise ValueError(f"no image data in {fname}")
+            return np.asarray(hdul[ext].data)
+        return np.asarray(img)
 
     def execute(self) -> None:
         img = self._load_image()

@@ -1,5 +1,6 @@
 // Drizzle deposit (kernel B1): scatter a stack of E input planes onto one
-// output grid, summed over the stack.
+// output grid, summed over the stack, or onto E output planes, one for each
+// input plane (an output plane stride of Ho * Wo; 0 sums).
 //
 // Replaces the Pallas TPU kernel subpixal_tpu/kernels/drizzle.py ·
 // drizzle_deposit_pallas (its pl.pallas_call at kernels/drizzle.py:444,
@@ -183,10 +184,15 @@ deposit_tiles(const float* __restrict__ data, const float* __restrict__ wht,
               const float* __restrict__ xo, const float* __restrict__ yo,
               int H, int W, int tiles_x, const float* __restrict__ prm,
               float* __restrict__ sci, float* __restrict__ wout, int Ho, int Wo,
-              int cap_cells, int* __restrict__ direct_strips) {
+              long long plane_stride, int cap_cells,
+              int* __restrict__ direct_strips) {
   extern __shared__ float win[];  // per warp: cap_cells of sci, then of wht
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = blockIdx.y;
+  // plane e's accumulators: every add below (direct, shared-window and
+  // flush) goes to them; a stride of 0 sums the planes
+  sci += (long long)e * plane_stride;
+  wout += (long long)e * plane_stride;
   const int r0 = (blockIdx.x / tiles_x) * kTileH + warp * kStripRows;
   const int c0 = (blockIdx.x % tiles_x) * kTileW;
   const Plane p = load_plane(prm, e);
@@ -358,8 +364,8 @@ deposit_tiles(const float* __restrict__ data, const float* __restrict__ wht,
 template <int KC>
 int launch(const float* data, const float* wht, const float* xo,
            const float* yo, int E, int H, int W, const float* prm, float* sci,
-           float* wout, int Ho, int Wo, int cap_cells, int* direct_strips,
-           cudaStream_t stream) {
+           float* wout, int Ho, int Wo, long long plane_stride, int cap_cells,
+           int* direct_strips, cudaStream_t stream) {
   const size_t bytes = 2 * sizeof(float) * (size_t)cap_cells * kWarps;
   if (bytes > 48 * 1024) {  // above the default limit
     const cudaError_t err = cudaFuncSetAttribute(
@@ -371,49 +377,53 @@ int launch(const float* data, const float* wht, const float* xo,
   const int tiles_y = (H + kTileH - 1) / kTileH;
   const dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)E);
   deposit_tiles<KC><<<grid, kThreads, bytes, stream>>>(
-      data, wht, xo, yo, H, W, tiles_x, prm, sci, wout, Ho, Wo, cap_cells,
-      direct_strips);
+      data, wht, xo, yo, H, W, tiles_x, prm, sci, wout, Ho, Wo, plane_stride,
+      cap_cells, direct_strips);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Deposit E planes of (H, W) f32 data, weights (`wht` may be null: unit
-// weights), x and y onto the (Ho, Wo) accumulators sci and wout, which the
-// caller zeroed, on `stream`. prm holds kParams floats per plane (K, half,
-// norm, half2, sigma2, s, reach, unused) on the device. cap_cells is the
-// shared-memory window of each warp in cells (at most kMaxCells).
-// direct_strips is null or an int the kernel adds one to for each 2 x 128
-// strip that took the direct global-atomics path. Returns cudaGetLastError() after the launch, or the
-// error that prevented it.
+// weights), x and y onto the accumulators sci and wout, which the caller
+// zeroed, on `stream`: plane e adds into sci + e * plane_stride (and wout
+// likewise), so a stride of 0 sums the planes into one (Ho, Wo) pair and a
+// stride of Ho * Wo keeps each plane's deposit in its own. prm holds
+// kParams floats per plane (K, half, norm, half2, sigma2, s, reach, unused)
+// on the device. cap_cells is the shared-memory window of each warp in
+// cells (at most kMaxCells). direct_strips is null or an int the kernel
+// adds one to for each 2 x 128 strip that took the direct global-atomics
+// path. Returns cudaGetLastError() after the launch, or the error that
+// prevented it.
 extern "C" int drizzle_deposit_stack_launch(
     const float* data, const float* wht, const float* xo, const float* yo,
     int E, int H, int W, const float* prm, float* sci, float* wout, int Ho,
-    int Wo, int kernel, int cap_cells, int* direct_strips, void* stream) {
+    int Wo, long long plane_stride, int kernel, int cap_cells,
+    int* direct_strips, void* stream) {
   if (E <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
   if (E > 65535 || Ho <= 0 || Wo <= 0 || cap_cells < 1 ||
-      cap_cells > kMaxCells)
+      cap_cells > kMaxCells || plane_stride < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (kernel) {
     case K_SQUARE:
       return launch<K_SQUARE>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                              Wo, cap_cells, direct_strips, s);
+                              Wo, plane_stride, cap_cells, direct_strips, s);
     case K_POINT:
       return launch<K_POINT>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                             Wo, cap_cells, direct_strips, s);
+                             Wo, plane_stride, cap_cells, direct_strips, s);
     case K_GAUSSIAN:
       return launch<K_GAUSSIAN>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                                Wo, cap_cells, direct_strips, s);
+                                Wo, plane_stride, cap_cells, direct_strips, s);
     case K_LANCZOS2:
       return launch<K_LANCZOS2>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                                Wo, cap_cells, direct_strips, s);
+                                Wo, plane_stride, cap_cells, direct_strips, s);
     case K_LANCZOS3:
       return launch<K_LANCZOS3>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                                Wo, cap_cells, direct_strips, s);
+                                Wo, plane_stride, cap_cells, direct_strips, s);
     case K_TOPHAT:
       return launch<K_TOPHAT>(data, wht, xo, yo, E, H, W, prm, sci, wout, Ho,
-                              Wo, cap_cells, direct_strips, s);
+                              Wo, plane_stride, cap_cells, direct_strips, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

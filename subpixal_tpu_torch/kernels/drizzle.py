@@ -3,7 +3,9 @@
 Replaces ``subpixal_tpu/kernels/drizzle.py · drizzle_deposit_pallas``.
 The plain versions are :func:`subpixal_tpu_torch.ops.drizzle.drizzle_deposit`
 and :func:`~subpixal_tpu_torch.ops.drizzle.drizzle_deposit_stack`. One
-launch deposits a whole (E, H, W) stack; a single plane is the E = 1 call.
+launch deposits a whole (E, H, W) stack, summed over the planes or (with
+``per_plane=True``) into (E, Ho, Wo) planes; a single plane is the E = 1
+call.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([_VP] * 4 + [ctypes.c_int] * 3 + [_VP] * 3
-                       + [ctypes.c_int] * 4 + [_VP, _VP])
+                       + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 2 + [_VP, _VP])
     return fn
 
 
@@ -69,7 +72,7 @@ def _plane_params(kernel: str, pixfrac: float, ratios: tuple, device: str):
 
 
 def _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
-                   pscale_ratio, kernel, direct_strips=None):
+                   pscale_ratio, kernel, direct_strips=None, per_plane=False):
     """Launch the kernel on a CUDA stack; ``direct_strips`` is None or an
     int32 CUDA tensor of one element to which the kernel adds each 2 x 128
     strip that took the direct global-atomics path."""
@@ -81,7 +84,7 @@ def _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
     if dev.type == "cpu":
         sci, wht = _plain_stack(in_data, in_wht, x_out, y_out, out_shape,
                                 pixfrac=pixfrac, pscale_ratio=ratios,
-                                kernel=kernel)
+                                kernel=kernel, per_plane=per_plane)
         return sci, wht, torch.zeros(len(ratios), dtype=torch.int32)
     if dev.type != "cuda":
         raise ValueError(f"drizzle_deposit: unsupported device {dev}")
@@ -101,14 +104,17 @@ def _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
                          f"{E} planes")
     Ho, Wo = (int(v) for v in out_shape)
     prm, cap = _plane_params(kernel, float(pixfrac), ratios, str(dev))
-    acc = torch.zeros((2, Ho, Wo), dtype=torch.float32, device=dev)
+    planes_out = (E,) if per_plane else ()
+    acc = torch.zeros((2,) + planes_out + (Ho, Wo), dtype=torch.float32,
+                      device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         rc = fn(in_data.data_ptr(),
                 None if in_wht is None else in_wht.data_ptr(),
                 x_out.data_ptr(), y_out.data_ptr(), E, H, W, prm.data_ptr(),
-                acc[0].data_ptr(), acc[1].data_ptr(), Ho, Wo, _CODES[kernel],
-                cap, None if direct_strips is None else direct_strips.data_ptr(),
+                acc[0].data_ptr(), acc[1].data_ptr(), Ho, Wo,
+                Ho * Wo if per_plane else 0, _CODES[kernel], cap,
+                None if direct_strips is None else direct_strips.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"drizzle_deposit: kernel launch failed "
@@ -120,17 +126,19 @@ def _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
 def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
                           x_out: torch.Tensor, y_out: torch.Tensor,
                           out_shape: tuple[int, int], pixfrac: float = 1.0,
-                          pscale_ratio=(1.0,), kernel: str = "square"):
+                          pscale_ratio=(1.0,), kernel: str = "square",
+                          per_plane: bool = False):
     """Deposit a stack of E input planes onto one output grid, in one
     kernel launch.
 
     Same contract as
     :func:`subpixal_tpu_torch.ops.drizzle.drizzle_deposit_stack` (one
-    ``pscale_ratio`` per plane) plus (E,) int32 ``escaped`` counts:
-    returns ``(sci_acc, wht_acc, escaped)``. The CUDA kernel has no static
-    output tile, so no live pixel can escape one and ``escaped`` is 0 by
-    construction (the JAX package's Pallas kernel counts the pixels its
-    tiles missed).
+    ``pscale_ratio`` per plane; ``per_plane=True`` returns each plane's
+    own (E, Ho, Wo) accumulators instead of their sum) plus (E,) int32
+    ``escaped`` counts: returns ``(sci_acc, wht_acc, escaped)``. The CUDA
+    kernel has no static output tile, so no live pixel can escape one and
+    ``escaped`` is 0 by construction (the JAX package's Pallas kernel
+    counts the pixels its tiles missed).
 
     CPU tensors take the plain version. CUDA tensors (all float32,
     contiguous, (E, H, W), on one device; ``in_wht`` may be None) launch
@@ -139,7 +147,7 @@ def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
     result equals the plain version's to float rounding, not bit for bit.
     """
     return _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
-                          pscale_ratio, kernel)
+                          pscale_ratio, kernel, per_plane=per_plane)
 
 
 def drizzle_deposit(in_data: torch.Tensor, in_wht: torch.Tensor | None,

@@ -140,26 +140,34 @@ def drizzle_deposit(in_data: torch.Tensor, in_wht: torch.Tensor | None,
 def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
                           x_out: torch.Tensor, y_out: torch.Tensor,
                           out_shape: tuple[int, int], pixfrac: float = 1.0,
-                          pscale_ratio=(1.0,), kernel: str = "square"):
+                          pscale_ratio=(1.0,), kernel: str = "square",
+                          per_plane: bool = False):
     """Deposit a stack of E input planes onto one output grid.
 
     ``in_data``/``in_wht``/``x_out``/``y_out`` are (E, H, W) (``in_wht``
     may be None) and ``pscale_ratio`` holds one ratio per plane. Returns
     ``(sci_acc, wht_acc)``: the sums over e = 0..E-1, in that order, of
-    :func:`drizzle_deposit` of each plane.
+    :func:`drizzle_deposit` of each plane, or with ``per_plane`` those
+    deposits stacked, (E, Ho, Wo) each.
     """
     ratios = [float(r) for r in pscale_ratio]
     if not ratios or len(ratios) != in_data.shape[0]:
         raise ValueError(f"{len(ratios)} pscale ratios for "
                          f"{in_data.shape[0]} planes")
-    sci = wht = None
+    sci, wht = [], []
     for e, r in enumerate(ratios):
         s, w = drizzle_deposit(in_data[e], None if in_wht is None
                                else in_wht[e], x_out[e], y_out[e], out_shape,
                                pixfrac=pixfrac, pscale_ratio=r, kernel=kernel)
-        sci = s if sci is None else sci + s
-        wht = w if wht is None else wht + w
-    return sci, wht
+        if per_plane or not sci:
+            sci.append(s)
+            wht.append(w)
+        else:
+            sci[0] = sci[0] + s
+            wht[0] = wht[0] + w
+    if per_plane:
+        return torch.stack(sci), torch.stack(wht)
+    return sci[0], wht[0]
 
 
 def drizzle_combine(sci_acc: torch.Tensor, wht_acc: torch.Tensor,

@@ -307,6 +307,9 @@ class TanWCS:
     def replace(self, **kw) -> "TanWCS":
         return dataclasses.replace(self, **kw)
 
+    def copy(self) -> "TanWCS":
+        return dataclasses.replace(self)
+
     def with_shifted_crpix(self, dx: float, dy: float) -> "TanWCS":
         """WCS of a subarray whose (0,0) is at parent pixel (dx, dy) —
         the reference's deep-copied-cutout-WCS-with-CRPIX-offset

@@ -144,9 +144,6 @@ def test_history_last_keeps_one_record():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(match_sky=True), "A10"),
-    (dict(static_mask=True), "A10"),
-    (dict(reject_cr=True), "A10"),
     (dict(mesh=object()), "A15"),
 ])
 def test_left_out_branches_raise(kw, item):

@@ -488,9 +488,9 @@ def test_align_goes_through_kernels(card):
                                    seed=5)
     kernels.reset_launch_counts()
     res = align_images(exposures=exps, device="cuda", max_iterations=6)
-    # B1: one launch per exposure for the initial drizzle, then the whole
-    # stack in one launch per iteration
-    assert kernels.LAUNCHES["drizzle_deposit"] == len(exps) + res.n_iterations
+    # B1: one launch for the initial drizzle (the stacked execute keeps
+    # each exposure's planes), then the whole stack once per iteration
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + res.n_iterations
     assert kernels.LAUNCHES["blot_gather"] > 0
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
     # the CPU run takes the device finder too ('auto' takes it on CUDA)
@@ -511,7 +511,7 @@ def test_new_path_goes_through_all_kernels(card):
     kernels.reset_launch_counts()
     res = align_images(device="cuda", max_iterations=6, **kw)
     assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert kernels.LAUNCHES["drizzle_deposit"] == 3 + res.n_iterations
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + res.n_iterations
     assert "cutout_pixmaps" in res.setup_breakdown
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
     cpu = align_images(device="cpu", max_iterations=1,
@@ -621,8 +621,8 @@ def test_device_finder_on_card_matches_cpu(card, method):
 @pytest.mark.parametrize("mode", [dict(wcsupdate="otf"),
                                   dict(device_loop=False)])
 def test_otf_and_host_loop_on_card(card, mode):
-    """'otf' (B1 once per exposure an iteration) and the host loop on the
-    card: one iteration equals the CPU run (the plain versions) with the
+    """'otf' (B1 once per exposure an iteration, once at setup) and the
+    host loop on the card: one iteration equals the CPU run (the plain versions) with the
     same finder. otf converges geometrically (every exposure is measured
     against a reference that moved with the earlier ones' updates), so
     both run 6 iterations."""
@@ -633,10 +633,143 @@ def test_otf_and_host_loop_on_card(card, mode):
     kernels.reset_launch_counts()
     res = align_images(device="cuda", max_iterations=6, eps_shift=1e-9, **kw)
     per_iter = 3 if mode.get("wcsupdate") == "otf" else 1
-    assert kernels.LAUNCHES["drizzle_deposit"] == 3 + per_iter * 6
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + per_iter * 6
     assert kernels.LAUNCHES["blot_gather"] == per_iter * 6
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
     cpu = align_images(device="cpu", max_iterations=1, **kw)
     for a, b in zip(res.history[0], cpu.history[0]):
         assert a.nmatches == b.nmatches
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DRIZZLE_KERNELS)
+def test_per_plane_deposit_matches_plain(card, kernel):
+    """B1 with per-exposure planes: one launch for 8 × 256² planes at
+    ratios 1.0, 0.5 and 2.0, each (Ho, Wo) plane held to the plain
+    version's, and the planes' sum to the summed launch."""
+    ratios = (1.0, 0.5, 2.0, 1.0, 0.5, 2.0, 1.0, 1.0)
+    t, oshape = _stack_scene(card, ratios, H=256, W=256, seed=6)
+    args = (t["data"], t["wht"], t["x"], t["y"], oshape)
+    before = kernels.LAUNCHES["drizzle_deposit"]
+    s, w, esc = drizzle_deposit_stack(*args, pixfrac=0.9,
+                                      pscale_ratio=ratios, kernel=kernel,
+                                      per_plane=True)
+    ps, pw = plain_deposit_stack(*args, pixfrac=0.9, pscale_ratio=ratios,
+                                 kernel=kernel, per_plane=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["drizzle_deposit"] == before + 1
+    assert tuple(s.shape) == tuple(ps.shape) == (8,) + oshape
+    assert int(esc.abs().sum()) == 0 and float(pw.sum()) > 0
+    for e in range(8):
+        assert _close(s[e], ps[e]) and _close(w[e], pw[e]), e
+    ss, sw, _ = drizzle_deposit_stack(*args, pixfrac=0.9,
+                                      pscale_ratio=ratios, kernel=kernel)
+    assert _close(s.sum(0), ss) and _close(w.sum(0), sw)
+
+
+def _stage_scene(dev=None, E=4, shape=(96, 104), seed=3):
+    """Exposures with sky offsets, half of them counts of other exptimes,
+    two dead pixels shared by all and planted CR hits; data as tensors on
+    ``dev`` (host arrays when None)."""
+    rng = np.random.default_rng(seed)
+    cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float64)
+    stars = rng.uniform(12, min(shape) - 12, (8, 2))
+    hits = [(20, 30), (60, 15), (41, 77)]
+    exps = []
+    for e in range(E):
+        dx, dy = rng.uniform(-2, 2, 2)
+        img = rng.normal(0, 0.02, shape) + 0.4 * e - 0.5
+        for x0, y0 in stars:
+            img += 30.0 * np.exp(-((xx - x0 - dx) ** 2 + (yy - y0 - dy) ** 2)
+                                 / (2 * 1.8 ** 2))
+        img[7, 9] = img[50, 61] = -5.0
+        for k, (y, x) in enumerate(hits):
+            if k % E == e:
+                img[y, x] += 500.0
+        t = 40.0 + 10.0 * e if e % 2 else 1.0
+        data = (img * t).astype(np.float32)
+        exps.append(Exposure(
+            data if dev is None else torch.tensor(data, device=dev),
+            TanWCS(crpix=np.array([52.0 + dx, 48.0 + dy]),
+                   crval=np.array([150.0, 2.0]), cd=cd),
+            exptime=t, data_units="counts" if e % 2 else "rate",
+            name=f"s{e}"))
+    return exps, hits
+
+
+@pytest.mark.cuda
+def test_stacked_execute_on_card_matches_cpu(card, monkeypatch):
+    """Drizzle.execute of a 3 × 256² stack on the card is ONE per-plane
+    launch; its planes and sums equal the CPU run of the same stacked
+    path (forced there) within 1e-4 of the largest value (each device
+    evaluates the f32 pixmaps in its own rounding)."""
+    from subpixal_tpu_torch import resample as R
+
+    exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    kernels.reset_launch_counts()
+    gd = R.Drizzle([e.copy() for e in exps], device=card)
+    gd.execute()
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1
+    assert gd._data_stack.device.type == "cuda"
+    monkeypatch.setattr(R, "device_pixmap_min_pixels", lambda device: 1)
+    cd = R.Drizzle([e.copy() for e in exps], device="cpu")
+    cd.execute()
+    for e in exps:
+        for a, b in zip(gd._per_exp[e.name], cd._per_exp[e.name]):
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    scale = float(np.abs(cd.output_sci).max())
+    assert np.abs(gd.output_sci - cd.output_sci).max() <= 1e-4 * scale
+    np.testing.assert_array_equal(gd.output_ctx, cd.output_ctx)
+
+
+@pytest.mark.cuda
+def test_stage_tensor_branches_on_card_match_host(card):
+    """match_sky, the static mask and reject_cr on CUDA-tensor exposures
+    (the tensor branches, on the card) against the host branches: skies
+    within 1e-4, equal masks, planted hits identical, CR totals within 2;
+    weights stay on the card and the input tensors are not written."""
+    from subpixal_tpu_torch.resample import Drizzle
+
+    host, hits = _stage_scene()
+    dev_exps, _ = _stage_scene(card)
+    orig = [e.data.clone() for e in dev_exps]
+    hd = Drizzle([e.copy() for e in host], device=card)
+    gd = Drizzle([e.copy() for e in dev_exps], device=card)
+    np.testing.assert_allclose(gd.match_sky(), hd.match_sky(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(gd.apply_static_mask(),
+                                  hd.apply_static_mask())
+    assert gd.exposures[0].weight.device.type == card.type
+    gm, hm = gd.reject_cr(snr=5.0), hd.reject_cr(snr=5.0)
+    for k, (y, x) in enumerate(hits):
+        assert gm[k % 4][y, x] and hm[k % 4][y, x]
+    assert abs(sum(int(m.sum()) for m in gm)
+               - sum(int(m.sum()) for m in hm)) <= 2
+    for e, o in zip(dev_exps, orig):
+        assert torch.equal(e.data, o) and e.weight is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((7,), None), ((8,), None),
+                                       ((8, 4096), 0), ((5, 333), 0)])
+def test_nanmedian_on_card_matches_numpy(card, shape, dim):
+    """The NaN-median helper on the card: NaNs sort last, an even count
+    averages its middle pair, an all-NaN slice gives NaN — np.nanmedian
+    exactly."""
+    import warnings
+
+    from subpixal_tpu_torch.resample import nanmedian
+
+    rng = np.random.default_rng(int(np.prod(shape)))
+    x = rng.normal(2.0, 3.0, shape).astype(np.float32)
+    x[rng.random(shape) < 0.3] = np.nan
+    if dim is not None:
+        x[:, 0] = np.nan
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = np.nanmedian(x, axis=dim)
+    got = nanmedian(torch.tensor(x, device=card), dim=dim)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -122,7 +122,7 @@ def test_finder_and_primary_cutouts_exact():
         np.testing.assert_array_equal(a.mask, b.mask)
 
 
-def test_image_source_catalog_exact_and_filters():
+def test_image_source_catalog_exact_and_filters(tmp_path):
     img = _star_image(8)
     j = JCatalog(img, nsigma=4.0)
     t = ImageSourceCatalog(img, nsigma=4.0)
@@ -130,8 +130,16 @@ def test_image_source_catalog_exact_and_filters():
         c.set_filters([("flux", ">", 5.0)])
     np.testing.assert_array_equal(t.catalog["x"], j.catalog["x"])
     np.testing.assert_array_equal(t.segmentation, j.segmentation)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ImageSourceCatalog("image.fits").execute()
+    # a FITS path gives the catalog of the array it holds
+    from subpixal_tpu_torch.io.fits import HDU, write_fits
+
+    path = str(tmp_path / "image.fits")
+    write_fits(path, HDU(img))
+    f = ImageSourceCatalog(path, nsigma=4.0)
+    f.set_filters([("flux", ">", 5.0)])
+    for k in t.catalog.colnames:
+        np.testing.assert_array_equal(f.catalog[k], t.catalog[k])
+    np.testing.assert_array_equal(f.segmentation, t.segmentation)
 
 
 def test_native_labeling_matches_scipy():
@@ -164,6 +172,8 @@ def test_exposures_from_reference_copies_state():
 
 def test_import_does_not_load_jax():
     code = ("import sys, subpixal_tpu_torch, subpixal_tpu_torch.align, "
+            "subpixal_tpu_torch.pipeline, subpixal_tpu_torch.cc, "
+            "subpixal_tpu_torch.centroid, "
             "subpixal_tpu_torch.kernels.drizzle, "
             "subpixal_tpu_torch.kernels.blot, subpixal_tpu_torch.testing; "
             "bad = [m for m in sys.modules if m == 'jax' "
