@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --cards N`` (a machine with N cards) builds the
+kernels, runs phase 9 on one card and then phase 15's checks on phase
+9's configuration over N NCCL ranks, one card each.
+
 ``python3 chip_smoke.py --profile [--root DIR]`` builds the kernels and
 instead measures device time with ``torch.profiler``: one iteration's
 re-drizzle as the package's align step runs it, the kernels per launch,
@@ -87,7 +91,25 @@ failure):
     reload to the returned WCSs and the state file reloads. The stages'
     tensor branches on device-resident exposures are held to their host
     branches on the card (skies within 1e-4, equal static masks, the
-    planted hits flagged by both, CR totals within 2).
+    planted hits flagged by both, CR totals within 2);
+14. the mesh path, one NCCL rank: phase 9's configuration under
+    ``mesh=make_mesh(1)`` (a one-rank NCCL group on an in-memory store),
+    with phase 7's checks: B1 once at setup and once an iteration over
+    all 8 local frames, B2 and B3 once an iteration, the device finder
+    run, fit error under 10 mpix, the first iteration within 1e-3 px of
+    the same run through the plain versions, a warm second call; and its
+    shifts within 5e-4 px of phase 9's run without a mesh;
+15. the mesh path, two ranks sharing the card: the same configuration in
+    two processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    card), which only load the kernels phase 2 built: each rank's B1 once
+    at setup (the stacked execute) and once an iteration on its 4
+    frames, B2 and B3 once an iteration on its half of the (frame,
+    source) batch; both ranks' shifts equal, and within 5e-4 px of phase
+    14's; a warm second call in each rank; in each rank the first
+    iteration within 1e-3 px of the same run through the plain versions
+    (so each kernel is held to its plain version at the shapes a rank
+    gives it). A rank that fails or outlasts its time limit fails the
+    phase.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -140,6 +162,10 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 #: the H100 SXM's L2 cache
 L2_BYTES = 50 * 2 ** 20
+
+
+#: the JAX package's align configuration (``bench.py``'s align smoke)
+NEW_PATH = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
 
 
 def bound(nbytes, flops):
@@ -639,14 +665,15 @@ def _plain_versions():
     from contextlib import ExitStack
 
     from subpixal_tpu_torch import align as align_mod
+    from subpixal_tpu_torch import blot as blot_mod
     from subpixal_tpu_torch import resample as resample_mod
     from subpixal_tpu_torch.ops.correlate import measure_window
 
     stack = ExitStack()
     for mod, name, fn in (
             (align_mod, "drizzle_deposit_stack", _plain_deposit_stack),
-            (align_mod, "sample_cutouts", _plain_gather),
-            (align_mod, "measure_window", measure_window),
+            (blot_mod, "sample_cutouts", _plain_gather),
+            (blot_mod, "measure_window", measure_window),
             (resample_mod, "drizzle_deposit", _plain_deposit),
             (resample_mod, "drizzle_deposit_stack", _plain_deposit_stack)):
         stack.enter_context(mock.patch.object(mod, name, fn))
@@ -666,7 +693,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     result."""
     import torch
 
-    from subpixal_tpu_torch import align as align_mod
+    from subpixal_tpu_torch import blot as blot_mod
     from subpixal_tpu_torch import catalogs_device, kernels
     from subpixal_tpu_torch.align import align_images
     from subpixal_tpu_torch.testing import (pairwise_shift_errors,
@@ -677,7 +704,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     kw = dict(exposures=exps, device=dev, eps_shift=1e-7, **config)
     seen = []
     finds = []
-    kernel_measure = align_mod.measure_window
+    kernel_measure = blot_mod.measure_window
     device_finder = catalogs_device.find_sources_device
 
     def spy(ref, *a, **k):  # the batches the loop hands to B3
@@ -690,7 +717,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
 
     kernels.reset_launch_counts()
     t0 = time.time()
-    with mock.patch.object(align_mod, "measure_window", spy), \
+    with mock.patch.object(blot_mod, "measure_window", spy), \
             mock.patch.object(catalogs_device, "find_sources_device",
                               finder_spy):
         res = align_images(max_iterations=iters, **kw)
@@ -762,6 +789,151 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
         raise AssertionError(f"{label}: first iteration differs from the "
                              f"plain run by {d} px")
     return launches, res
+
+
+def phase_mesh_one_rank(dev, ref):
+    """Phase 14: phase 9's configuration (``ref``: its result) under
+    ``mesh=make_mesh(1)``, one NCCL rank. Returns the launch counts and
+    the result."""
+    import torch.distributed as dist
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1)
+    backend = dist.get_backend(mesh.group)
+    print(f"mesh path, one rank: {mesh}, backend {backend}")
+    if backend != "nccl":
+        raise AssertionError(f"make_mesh(1) on the card took {backend}")
+    try:
+        launches, res = phase_align(
+            dev, "mesh path, one NCCL rank", tuple(kernels.LAUNCHES),
+            mesh=mesh, **NEW_PATH)
+    finally:
+        dist.destroy_process_group()
+    n = res.n_iterations
+    if launches["blot_gather"] != n or launches["measure_displacement"] != n:
+        raise AssertionError(f"mesh path, one rank: {launches} for {n} "
+                             "iterations")
+    d = float(np.abs(np.asarray(res.shifts) - np.asarray(ref.shifts)).max())
+    print(f"mesh path, one rank, vs phase 9 without a mesh: max |dshift| "
+          f"{d:.3e} px")
+    if not d < 5e-4:
+        raise AssertionError(f"the one-rank mesh differs from phase 9 by "
+                             f"{d} px")
+    return launches, res
+
+
+#: one rank of phase 9's configuration under ``mesh=``: argv[4] is the
+#: backend, argv[5] the rank's device ('auto': cuda:LOCAL_RANK)
+_MESH_RANK = r"""
+import json, sys, time
+from unittest import mock
+
+import numpy as np
+import torch
+
+from subpixal_tpu_torch import align_images, catalogs_device, kernels
+from subpixal_tpu_torch.parallel import init_distributed, make_mesh
+from subpixal_tpu_torch.testing import pairwise_shift_errors, simulate_stack
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed(addr, world, rank, backend=sys.argv[4])
+mesh = make_mesh(world, device=None if sys.argv[5] == "auto" else sys.argv[5])
+exps, planted = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                               seed=11)
+kw = dict(exposures=exps, mesh=mesh, device="cuda", eps_shift=1e-7,
+          max_iterations=4, fitgeom="shift", usfac=8, fit_type="gaussian")
+finds = []
+finder = catalogs_device.find_sources_device
+
+
+def spy(image, *a, **k):
+    finds.append(image.device.type)
+    return finder(image, *a, **k)
+
+
+kernels.reset_launch_counts()
+t0 = time.time()
+with mock.patch.object(catalogs_device, "find_sources_device", spy):
+    res = align_images(**kw)
+torch.cuda.synchronize()
+wall = time.time() - t0
+launches = dict(kernels.LAUNCHES)
+warm = align_images(**kw)
+# the first iteration forced through the kernels' plain versions on the
+# card: B1 on this rank's frames, B2 and B3 on its block of the cutout rows
+from chip_smoke import _plain_versions
+
+with _plain_versions():
+    res_p = align_images(**dict(kw, max_iterations=1))
+plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+                 for a, b in zip(res.history[0], res_p.history[0]))
+print("RESULT " + json.dumps(dict(
+    rank=rank, device=str(mesh.device), launches=launches, finds=finds,
+    wall=wall, plain_diff=plain_diff,
+    shifts=np.asarray(res.shifts).tolist(), n_iterations=res.n_iterations,
+    err_mpix=1e3 * pairwise_shift_errors(res.shifts, planted),
+    nmatches=res.history[0][0].nmatches, setup_s=res.setup_s,
+    iter_ms=1e3 * res.history[-1][0].iter_s, warm_setup_s=warm.setup_s,
+    warm_iter_ms=1e3 * warm.history[-1][0].iter_s,
+    setup_breakdown=warm.setup_breakdown)), flush=True)
+"""
+
+
+def phase_mesh_ranks(ref, world=2, backend="gloo", device="cuda:0"):
+    """Phase 15 (the defaults: two processes sharing ``cuda:0`` over
+    gloo), or ``--cards N`` (N NCCL ranks, one card each): phase 9's
+    configuration under ``mesh=`` in ``world`` processes; ``ref`` is the
+    result the ranks' shifts are held to. Returns rank 0's launch counts
+    and its record."""
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    label = f"mesh path, {world} {backend} ranks"
+    t0 = time.time()
+    outs = SpawnedRanks(_MESH_RANK, world,
+                        args=(backend, device)).wait(timeout=600)
+    recs = [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("RESULT "))[7:]) for o in outs]
+    print(f"{label}: {time.time() - t0:.2f} s wall for all {world} "
+          "processes (start, import, two align calls and a plain one)")
+    for r in recs:
+        n = r["n_iterations"]
+        print(f"{label}, rank {r['rank']} on {r['device']}: launches "
+              f"{r['launches']}, device finder calls {r['finds']}, "
+              f"{n} iterations, fit error {r['err_mpix']:.3f} mpix, sources "
+              f"{r['nmatches']}; first call setup_s {r['setup_s']:.3f}, "
+              f"{r['iter_ms']:.3f} ms per iteration, wall {r['wall']:.2f} "
+              f"s; second call setup_s {r['warm_setup_s']:.3f}, "
+              f"{r['warm_iter_ms']:.3f} ms per iteration")
+        print(f"{label}, rank {r['rank']}, second call: "
+              "setup_breakdown " + json.dumps(
+                  {k: round(v, 4) for k, v in r["setup_breakdown"].items()}))
+        la = r["launches"]
+        if (la["drizzle_deposit"] != 1 + n or la["blot_gather"] != n
+                or la["measure_displacement"] != n or n != 4):
+            raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                 f"{la} in {n} iterations")
+        if r["finds"] != ["cuda"] * len(r["finds"]) or not r["finds"]:
+            raise AssertionError(f"rank {r['rank']} ran the device finder "
+                                 f"on {r['finds']}")
+        if not r["err_mpix"] < 10.0:
+            raise AssertionError(f"rank {r['rank']}: fit error "
+                                 f"{r['err_mpix']} mpix")
+        print(f"{label}, rank {r['rank']}: first-iteration shifts vs plain "
+              f"versions: max |diff| {r['plain_diff']:.3e} px")
+        if not r["plain_diff"] < 1e-3:
+            raise AssertionError(f"{label}: rank {r['rank']}'s first "
+                                 "iteration differs from the plain run by "
+                                 f"{r['plain_diff']} px")
+    if any(r["shifts"] != recs[0]["shifts"] for r in recs):
+        raise AssertionError(f"{label}: the ranks returned different shifts")
+    d = float(np.abs(np.asarray(recs[0]["shifts"])
+                     - np.asarray(ref.shifts)).max())
+    print(f"{label} vs the reference run: max |dshift| {d:.3e} px")
+    if not d < 5e-4:
+        raise AssertionError(f"{label} differ from the reference by {d} px")
+    return recs[0]["launches"], recs[0]
 
 
 def phase_catalog(dev):
@@ -1115,7 +1287,11 @@ def profile_redrizzle(dev) -> None:
 def profile_paths(dev) -> None:
     """``--profile``: torch.profiler over one warm align call of each path
     (after a warm-up call): device time by kernel, device busy time per
-    iteration, and launches."""
+    iteration, launches, the host ops that take the most host time, and
+    the collectives (the mesh path, one NCCL rank, where the imported
+    package has ``parallel``)."""
+    import importlib.util
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1123,12 +1299,18 @@ def profile_paths(dev) -> None:
     from subpixal_tpu_torch.testing import simulate_stack
 
     new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
-    for label, sigma, config in (
-            ("defaults' path", 1.8, {}),
-            ("defaults' path, host finder", 1.8,
-             dict(device_catalog="host")),
-            ("new path", 1.8, new), ("48² path", 3.0, new),
-            ("otf path", 1.8, dict(new, wcsupdate="otf"))):
+    cells = [("defaults' path", 1.8, {}),
+             ("defaults' path, host finder", 1.8,
+              dict(device_catalog="host")),
+             ("new path", 1.8, new), ("48² path", 3.0, new),
+             ("otf path", 1.8, dict(new, wcsupdate="otf"))]
+    mesh = None
+    if importlib.util.find_spec("subpixal_tpu_torch.parallel") is not None:
+        from subpixal_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(1)
+        cells.append(("mesh path, one NCCL rank", 1.8, dict(new, mesh=mesh)))
+    for label, sigma, config in cells:
         exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
                                  seed=11, sigma=sigma)
         kw = dict(exposures=exps, device=dev, eps_shift=1e-7,
@@ -1158,6 +1340,22 @@ def profile_paths(dev) -> None:
             if i < 12 or any(k in e.key for k in own):
                 print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                       f"{e.count:6d}x  {e.key[:90]}")
+        host = sorted((e for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0),
+                      key=lambda e: -e.self_cpu_time_total)
+        coll = [e for e in host if "all_reduce" in e.key
+                or "allreduce" in e.key]
+        print(f"  host: {sum(e.self_cpu_time_total for e in host) / 1e3:.3f}"
+              f" ms of self CPU time in all; collectives "
+              f"{sum(e.self_cpu_time_total for e in coll) / 1e3:.3f} ms "
+              f"over {sum(e.count for e in coll)} calls; the 6 longest:")
+        for e in host[:6]:
+            print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]} (host)")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1192,12 +1390,21 @@ def main() -> int:
         profile_redrizzle(dev)
         profile_paths(dev)
         return 0
+    if "--cards" in args:  # the mesh path over N NCCL ranks, a card each
+        cards = int(args[args.index("--cards") + 1])
+        if torch.cuda.device_count() < cards:
+            raise AssertionError(f"--cards {cards}: "
+                                 f"{torch.cuda.device_count()} cards")
+        _, ref = phase_align(dev, "new path", tuple(kernels.LAUNCHES),
+                             **NEW_PATH)
+        phase_mesh_ranks(ref, cards, "nccl", "auto")
+        return 0
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
     b3 = phase_b3(dev)
     phase_catalog(dev)
-    new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
+    new = NEW_PATH
     runs = {
         "defaults": phase_align(dev, "defaults' path",
                                 ("drizzle_deposit", "blot_gather")),
@@ -1220,6 +1427,8 @@ def main() -> int:
                                  device_loop=False, **new),
         "pipeline": phase_pipeline(dev),
     }
+    runs["mesh_1rank"] = phase_mesh_one_rank(dev, runs["align_usfac8"][1])
+    runs["mesh_2ranks"] = phase_mesh_ranks(runs["mesh_1rank"][1])
     # the reference's own bar between the finders (tests/test_align.py)
     d_fin = float(np.abs(runs["defaults"][1].shifts
                          - runs["defaults_host_finder"][1].shifts).max())

@@ -24,15 +24,27 @@ Module map (JAX package -> here):
   wcs/fitswcs, io/fits,
   utils                  -> catalogs, wcs, fitswcs, io/fits, utils
                                           (host numpy, carried over)
+  parallel/distributed,
+  parallel/sharding      -> parallel      (torch.distributed process
+                                           groups; align_images(mesh=))
 """
 
+from .version import __version__
+
 from .align import AlignConfig, AlignResult, ImageAlignInfo, align_images
-from .catalogs import ImageCatalog, ImageSourceCatalog, Table, find_sources
+from .blot import blot_cutout, blot_image, compute_pixmap
+from .catalogs import (ImageCatalog, ImageSourceCatalog, SExCatalog,
+                       SExImageCatalog, Table, find_sources)
 from .convert import exposures_from_reference
-from .cutout import Cutout, create_primary_cutouts
+from .cutout import (Cutout, NoOverlapError, PartialOverlapError,
+                     create_cutouts, create_input_image_cutouts,
+                     create_primary_cutouts, cutouts_to_batch,
+                     drz_from_input_cutouts)
 from .kernels.measure import find_displacement
 from .ops.correlate import Displacement, cross_correlate
-from .ops.fit import LinearFitResult, apply_affine, iter_linear_fit
+from .ops.cutouts import CutoutBatch, extract_cutouts, insert_cutouts
+from .ops.fit import (LinearFitResult, apply_affine, iter_linear_fit,
+                      iter_linear_fit_frames, iter_linear_fit_sharded)
 from .ops.peaks import PeakFitResult, find_peak
 from .fitswcs import wcs_from_hdul, wcs_from_header, wcs_to_header
 from .resample import Drizzle, Exposure, Resample, make_output_wcs
@@ -40,13 +52,31 @@ from .utils import parse_file_name
 from .wcs import DistGrid, TanWCS, apply_tangent_affine
 
 __all__ = [
-    "align_images", "AlignConfig", "AlignResult", "ImageAlignInfo",
-    "ImageCatalog", "ImageSourceCatalog", "Table", "find_sources",
-    "exposures_from_reference", "Cutout", "create_primary_cutouts",
-    "Displacement", "cross_correlate", "find_displacement",
-    "LinearFitResult", "apply_affine", "iter_linear_fit",
-    "PeakFitResult", "find_peak",
+    "__version__",
+    # measurement
+    "find_peak", "PeakFitResult",
+    "cross_correlate", "find_displacement", "Displacement",
+    # fitting
+    "iter_linear_fit", "iter_linear_fit_frames", "iter_linear_fit_sharded",
+    "LinearFitResult", "apply_affine",
+    # cutouts
+    "extract_cutouts", "insert_cutouts", "CutoutBatch",
+    "Cutout", "NoOverlapError", "PartialOverlapError",
+    "create_primary_cutouts", "create_input_image_cutouts",
+    "create_cutouts", "drz_from_input_cutouts", "cutouts_to_batch",
+    # blot / resample
+    "blot_cutout", "blot_image", "compute_pixmap",
     "Resample", "Drizzle", "Exposure", "make_output_wcs",
-    "DistGrid", "TanWCS", "apply_tangent_affine", "wcs_from_header",
-    "wcs_to_header", "wcs_from_hdul", "parse_file_name",
+    # catalogs
+    "ImageCatalog", "ImageSourceCatalog", "SExCatalog", "SExImageCatalog",
+    "Table", "find_sources",
+    # wcs
+    "TanWCS", "DistGrid", "apply_tangent_affine", "wcs_from_header",
+    "wcs_to_header", "wcs_from_hdul",
+    # align
+    "align_images", "AlignConfig", "AlignResult", "ImageAlignInfo",
+    # utils
+    "parse_file_name",
+    # the port's own
+    "exposures_from_reference",
 ]

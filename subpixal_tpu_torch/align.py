@@ -1,7 +1,7 @@
-"""Iterative image alignment — the port's main API (one device).
+"""Iterative image alignment — the port's main API.
 
-Counterpart of ``subpixal_tpu/align.py · align_images`` on one device:
-measure per-source displacements between each exposure and the combined
+Counterpart of ``subpixal_tpu/align.py · align_images``: measure
+per-source displacements between each exposure and the combined
 (drizzled) reference, fit a sigma-clipped linear correction per exposure
 in the reference pixel frame, compose it into the per-exposure affine
 state, and repeat until the ``eps_shift`` test passes.
@@ -25,20 +25,23 @@ state, and repeat until the ``eps_shift`` test passes.
   corrections outgrow its margin.
 * One iteration (:func:`_step`) runs on the device: re-drizzle every
   exposure through its affine-corrected pixmap (the whole stack in one
-  launch of kernel B1), blot the
-  combined image at every (exposure, source) cutout grid (kernel B2),
-  ``find_displacement`` (kernel B3 for ``usfac > 1`` under a small search
-  box; ``torch.fft`` otherwise), the per-exposure fits, and the affine
-  composition. Under ``wcsupdate='otf'`` the reference is re-drizzled
+  launch of kernel B1), blot the combined image at every (exposure,
+  source) cutout grid of the flattened batch and measure the
+  displacements (``blot.blot_measure``: kernel B2, then kernel B3 for
+  ``usfac > 1`` under a small search box, ``torch.fft`` otherwise), the
+  per-exposure fits, and the affine composition. Under ``wcsupdate='otf'`` the reference is re-drizzled
   before each exposure is measured, so later exposures align against
   already-corrected ones.
 * The fixed-point loop keeps the state and a preallocated history on the
   device and reads back only ``max_shift`` each iteration; the host loop
   (``device_loop=False``, or ``verbose``) reads each iteration's fit back
   and records (and prints) it.
-
-Branches of the JAX package that this slice does not port raise
-``NotImplementedError`` naming their ROADMAP item.
+* Under ``mesh=`` (the JAX package's ``_build_mesh_step``) one process
+  per device runs the same call and the same :func:`_step` on its block
+  (:func:`_block`): it re-drizzles its block of the frames (one B1
+  launch) and measures its block of the flattened (frame, source) cutout
+  batch (B2, B3); the accumulators and the fits' moment sums are
+  ``all_reduce``-d over the process group.
 """
 
 from __future__ import annotations
@@ -51,24 +54,22 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._precision import full_f32
-from .blot import (compute_cutout_pixmaps_device_stack, compute_pixmap,
+from .blot import (_affine_apply_grid, blot_measure,
+                   compute_cutout_pixmaps_device_stack, compute_pixmap,
                    compute_pixmap_device_stack, device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
 from .cutout import create_primary_cutouts
-from .kernels.blot import sample_cutouts
 from .kernels.drizzle import drizzle_deposit_stack
-from .kernels.measure import measure_window
-from .ops.correlate import find_displacement
 from .ops.cutouts import extract_cutouts
 from .ops.drizzle import drizzle_combine, kernel_reach
-from .ops.fit import LinearFitResult, iter_linear_fit
+from .ops.fit import LinearFitResult, _reducer, iter_linear_fit_frames
 from .ops.interp import sample_image
 from .resample import (Drizzle, Exposure, _exposure_stack_key,
-                       _not_in_slice, _stack_planes, _weight_parts,
-                       exposure_rate_data)
+                       _stack_planes, _weight_parts, exposure_rate_data)
 from .wcs import apply_tangent_affine
 
 __all__ = ["align_images", "AlignConfig", "AlignResult", "ImageAlignInfo"]
@@ -183,24 +184,6 @@ def _check_config(cfg: AlignConfig) -> None:
     if cfg.use_pallas is False:
         raise ValueError("use_pallas=False has no counterpart in the port: "
                          "CUDA tensors always take the CUDA kernels")
-
-
-def _affine_apply_grid(M, t, gx, gy):
-    """Apply per-entry affines (..., 2, 2), (..., 2) to coordinate grids
-    whose leading axes match M's batch axes."""
-    extra = gx.dim() - (M.dim() - 2)
-
-    def b(a):
-        return a.reshape(a.shape + (1,) * extra)
-
-    nx = b(M[..., 0, 0]) * gx + b(M[..., 0, 1]) * gy + b(t[..., 0])
-    ny = b(M[..., 1, 0]) * gx + b(M[..., 1, 1]) * gy + b(t[..., 1])
-    return nx, ny
-
-
-def _affine_apply_pts(M, t, pts):
-    """(E,2,2), (E,2), (E,N,2) -> (E,N,2)."""
-    return torch.einsum("eij,enj->eni", M, pts) + t[:, None, :]
 
 
 class _PrimMeta:
@@ -439,8 +422,87 @@ class _LoopArgs:
     #                           seg, idx, valid)
 
 
-def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
-          a: _LoopArgs, Ms: torch.Tensor, ts: torch.Tensor,
+@dataclasses.dataclass
+class _Block:
+    """One iteration's inputs as this device holds them: the frames it
+    re-drizzles and its rows of the flattened (frame, source) cutout
+    batch. Without a mesh that is every frame and every row, in order (N
+    rows a frame); under ``mesh=`` this rank's contiguous block of each,
+    padded to a multiple of the mesh size (padded frames: data, weight
+    and pixmaps 0, frame id E - 1; padded rows: weight 0, invalid, frame
+    id 0)."""
+
+    dep_data: torch.Tensor   # (El, Hd, Wd) deposit inputs, as _LoopArgs
+    dep_wht: torch.Tensor
+    dep_px: torch.Tensor
+    dep_py: torch.Tensor
+    dep_fid: torch.Tensor    # (El,) int64 frame of each plane
+    dep_ratios: tuple        # (El,) pscale ratio of each plane
+    px: torch.Tensor         # (Bl, h, w) cutout pixmaps
+    py: torch.Tensor
+    img: torch.Tensor        # (Bl, h, w) image cutouts, masks, seg masks
+    msk: torch.Tensor
+    seg: torch.Tensor
+    jac: torch.Tensor        # (Bl, 2, 2) exposure->ref Jacobians
+    xy0: torch.Tensor        # (Bl, 2) catalog positions
+    w: torch.Tensor          # (Bl,) fit weights before the measurement
+    valid: torch.Tensor      # (Bl,) bool
+    fid: torch.Tensor        # (Bl,) int64 frame of each row
+    # rows a frame of the base set and of the bucket when the block holds
+    # whole frames in order (no mesh), else None
+    per_frame: tuple | None = None
+    big: tuple | None = None  # oversized bucket: (px, py, img, msk, seg,
+    #                           tgt, fid, valid), (KBl, ...) each; tgt is
+    #                           the global row a slot overrides
+
+
+def _block(a: _LoopArgs, mesh, cfg: AlignConfig, dri_ratios) -> _Block:
+    """``a`` flattened to (frame, source) rows: all of it without a mesh,
+    else this rank's block of the frames and of the rows, each padded to
+    a multiple of the mesh size."""
+    from .parallel import pad_to_multiple, stage_global
+
+    E, N = a.cut_px.shape[:2]
+    D, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    El = -(-E // D)
+    dev = a.cut_px.device
+    fid = np.minimum(np.arange(El * D), E - 1)[rank * El:(rank + 1) * El]
+
+    def shard(t, fill=0):
+        if mesh is None:
+            return t
+        return stage_global(pad_to_multiple(t, D, fill=fill)[0], mesh)
+
+    def flat(t):  # (E, n, ...) -> (E·n, ...)
+        return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
+
+    fw = a.src_valid.to(torch.float32)
+    if cfg.use_weights:
+        fw = fw * a.src_w
+    big, NBp = None, 0
+    if a.big is not None:
+        cpx, cpy, bimg, bmsk, bseg, bidx, bval = a.big
+        NBp = bidx.shape[0]
+        eidx = torch.arange(E, device=dev)[:, None]
+        big = tuple(shard(flat(t), fill) for t, fill in (
+            (cpx, 0), (cpy, 0), (bimg, 0), (bmsk, False), (bseg, 0),
+            (eidx * N + bidx[None], 0), (eidx.expand(E, NBp), 0),
+            (bval[None].expand(E, NBp), False)))
+    return _Block(
+        *(shard(t) for t in (a.exp_data, a.exp_wht, a.dri_px, a.dri_py)),
+        dep_fid=torch.as_tensor(fid, device=dev),
+        dep_ratios=tuple(dri_ratios[f] for f in fid),
+        px=shard(flat(a.cut_px)), py=shard(flat(a.cut_py)),
+        img=shard(flat(a.img_cut)), msk=shard(flat(a.img_msk), False),
+        seg=shard(flat(a.seg_cut)), jac=shard(flat(a.jac)),
+        xy0=shard(flat(a.xy0)), w=shard(flat(fw)),
+        valid=shard(flat(a.src_valid), False),
+        fid=shard(torch.arange(E, device=dev).repeat_interleave(N)),
+        per_frame=(N, NBp) if mesh is None else None, big=big)
+
+
+def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
+          Ms: torch.Tensor, ts: torch.Tensor, mesh=None,
           track_corr: bool = False):
     """One iteration: re-drizzle, blot, measure, fit, compose.
 
@@ -448,143 +510,145 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
     re-drizzled with the current state before each exposure is measured
     and fitted, and that exposure's state is updated before the next.
 
+    ``b`` holds this device's frames and cutout rows: their re-drizzle is
+    one kernel B1 launch (a pscale ratio per plane), their blot kernel B2
+    and their measurement kernel B3 (``usfac > 1``). Under ``mesh=`` every
+    rank runs this on its block, and the sci / weight accumulators, the
+    bucket's override, the escapes, the fits' moments and the eps_shift
+    sums are ``all_reduce``-d over the ranks (without a mesh each
+    reduction is the identity), so every rank holds the same fits and
+    composes the same state. Ranks must take every decision alike, or a
+    collective waits forever: every value the host branches on
+    (``max_shift``, ``max_corr``, the escapes) is reduced here, and the
+    collectives run in the same order on every rank. Only ``all_reduce``
+    is used: gloo (ranks sharing one card) takes CUDA tensors for it, not
+    for ``all_gather``.
+
     Returns ``(newM, newt, info)``; ``info`` holds the per-exposure fit
     (G_M, G_t, rms, rmse, mae, nmatches), ``max_shift`` (the eps_shift
     metric), the kernels' ``escaped`` counts and, with ``track_corr``
     (only the compacted deposit reads it), ``max_corr``: how far any
     cutout window has moved from its setup position, the sparse deposit's
     staleness signal."""
-    E, N = a.cut_px.shape[:2]
+    dev = Ms.device
+    E = Ms.shape[0]
+    group = None if mesh is None else mesh.group
+    psum = _reducer(group)
+    Bl = b.px.shape[0]
+    off, Bg = (0, Bl) if mesh is None else (mesh.rank * Bl, mesh.size * Bl)
+    meas_kw = dict(interp=cfg.interp, cc_type=cfg.cc_type, usfac=cfg.usfac,
+                   peak_fit_box=cfg.peak_fit_box, fit_type=cfg.fit_type,
+                   peak_search_box=cfg.peak_search_box)
 
-    def drizzle_all(M_, t_):
-        """The combined reference at state (M_, t_): every exposure
-        re-drizzled with its correction, the whole stack in one deposit."""
-        px, py = _affine_apply_grid(M_, t_, a.dri_px, a.dri_py)
-        sci, wht, esc = drizzle_deposit_stack(
-            a.exp_data, a.exp_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
-            pscale_ratio=dri_ratios, kernel=cfg.kernel)
-        return drizzle_combine(sci, wht), esc
+    def per_frame(v, fid):  # (E,) int32 sums of v over the rows' frames
+        return torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
+            0, fid, v.to(torch.int32))
 
-    def measure_set(drz, Mi, ti, cpx, cpy, img, mk0, seg, hw,
-                    slot_valid=None):
-        """Displacements of one cutout set (k, n, hh, ww) vs ``drz``."""
-        k, n = cpx.shape[:2]
-        hh, ww = hw
-        bpx, bpy = _affine_apply_grid(Mi, ti, cpx, cpy)
-        vals, ok, besc = sample_cutouts(drz, bpx.reshape(k * n, hh, ww),
-                                        bpy.reshape(k * n, hh, ww),
-                                        interp=cfg.interp)
-        blotted = vals.reshape(k, n, hh, ww)
-        esc_pn = besc.reshape(k, n)
-        if slot_valid is not None:
-            esc_pn = esc_pn * slot_valid.to(esc_pn.dtype)
-        msk = (mk0 & ok.reshape(k, n, hh, ww)).reshape(k * n, hh, ww)
-        if cfg.combine_seg_mask:
-            img = img * seg
-            blotted = blotted * seg
-        d = find_displacement(
-            blotted.reshape(k * n, hh, ww), img.reshape(k * n, hh, ww),
-            cc_type=cfg.cc_type, usfac=cfg.usfac,
-            peak_fit_box=cfg.peak_fit_box, fit_type=cfg.fit_type,
-            ref_mask=msk, img_mask=msk, peak_search_box=cfg.peak_search_box,
-            measure=measure_window)
-        dxy = torch.stack([d.dx, d.dy], dim=-1).reshape(k, n, 2)
-        return (dxy, d.fit_ok.reshape(k, n), d.peak.reshape(k, n),
-                esc_pn.sum(1, dtype=torch.int32))
+    def measure(M_, t_, e=None):
+        """The reference re-drizzled at state (M_, t_) and the block's
+        rows (frame e's alone, given e and whole frames) blotted and
+        measured against it: (rows, uv, weights, escapes (E,))."""
+        px, py = _affine_apply_grid(M_[b.dep_fid], t_[b.dep_fid], b.dep_px,
+                                    b.dep_py)
+        sci, wht, esc_d = drizzle_deposit_stack(
+            b.dep_data, b.dep_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
+            pscale_ratio=b.dep_ratios, kernel=cfg.kernel)
+        drz = drizzle_combine(psum(sci), psum(wht))
+        rows = brows = slice(None)
+        if e is not None and b.per_frame is not None:
+            n, nb = b.per_frame
+            rows, brows = slice(e * n, (e + 1) * n), slice(e * nb, (e + 1) * nb)
+        fid = b.fid[rows]
+        Mi, ti = M_[fid], t_[fid]
+        seg = b.seg[rows] if cfg.combine_seg_mask else None
+        d, besc = blot_measure(drz, Mi, ti, b.px[rows], b.py[rows],
+                               b.img[rows], b.msk[rows], seg, **meas_kw)
+        dxy = torch.stack([d.dx, d.dy], dim=-1)
+        good = (d.fit_ok & (d.peak > 0)).to(torch.float32)
+        esc = per_frame(esc_d, b.dep_fid) + per_frame(besc, fid)
+        if b.big is not None:
+            # oversized-footprint bucket: sources whose footprint exceeds
+            # the base cutout are re-measured whole at a second static
+            # shape and override their base rows (tgt, a global row)
+            # through a one-hot product summed over the ranks, of which
+            # each rank reads its own rows back out (an index_put_ with
+            # padded duplicate indices has no defined order)
+            bpx, bpy, bimg, bmsk, bseg, btgt, bfid, bval = (
+                v[brows] for v in b.big)
+            dB, escB = blot_measure(
+                drz, M_[bfid], t_[bfid], bpx, bpy, bimg, bmsk,
+                bseg if cfg.combine_seg_mask else None, **meas_kw)
+            goodB = (dB.fit_ok & (dB.peak > 0)).to(torch.float32)
+            ohB = ((btgt[:, None] == torch.arange(Bg, device=dev)[None])
+                   & bval[:, None]).to(torch.float32)         # (KB, Bg)
+            over = psum(torch.cat([
+                torch.einsum("kb,kj->bj", ohB,
+                             torch.stack([dB.dx, dB.dy], dim=-1)),
+                torch.einsum("kb,k->b", ohB, goodB)[:, None],
+                ohB.sum(0)[:, None]], 1))[off:off + Bl][rows]
+            anyb = over[:, 3] > 0.5
+            dxy = torch.where(anyb[:, None], over[:, :2], dxy)
+            good = torch.where(anyb, over[:, 2], good)
+            esc = esc + per_frame(escB * bval, bfid)
+        MJ = torch.einsum("nij,njk->nik", Mi, b.jac[rows])
+        uv = b.xy0[rows] + torch.einsum("nik,nk->ni", MJ, dxy)
+        return rows, uv, b.w[rows] * good, psum(esc)
 
-    def measure(drz, M_, t_, sel=slice(None)):
-        """Blot + measure the cutouts of exposures ``sel`` (a slice) vs
-        ``drz``, the oversized bucket included."""
-        dxy, meas_ok, peak, esc = measure_set(
-            drz, M_[sel], t_[sel], a.cut_px[sel], a.cut_py[sel],
-            a.img_cut[sel], a.img_msk[sel], a.seg_cut[sel], cut_shape)
-        if big_shape is None:
-            return dxy, meas_ok, peak, esc
-        # oversized-footprint bucket: sources whose footprint exceeds the
-        # base cutout are re-measured whole at a second static shape and
-        # override their base rows through a one-hot product (an
-        # index_put_ with padded duplicate indices has no defined order)
-        cpx, cpy, bimg, bmsk, bseg, bidx, bval = a.big
-        dxyB, okB, pkB, escB = measure_set(
-            drz, M_[sel], t_[sel], cpx[sel], cpy[sel], bimg[sel], bmsk[sel],
-            bseg[sel], big_shape, slot_valid=bval)
-        sel_b = ((bidx[:, None] == torch.arange(N, device=bidx.device)[None])
-                 & bval[:, None])                             # (NB, N)
-        selF = sel_b.to(torch.float32)
-        anyb = sel_b.any(dim=0)                               # (N,)
-        dxy = torch.where(anyb[None, :, None],
-                          torch.einsum("bn,ebk->enk", selF, dxyB), dxy)
-        meas_ok = torch.where(
-            anyb[None, :],
-            torch.einsum("bn,eb->en", selF, okB.to(torch.float32)) > 0.5,
-            meas_ok)
-        peak = torch.where(anyb[None, :],
-                           torch.einsum("bn,eb->en", selF, pkB), peak)
-        return dxy, meas_ok, peak, esc + escB
-
-    def fit_weights(valid, meas_ok, peak, src_w):
-        w = (valid & meas_ok & (peak > 0)).to(torch.float32)
-        return w * src_w if cfg.use_weights else w
-
+    # ---- per-exposure sigma-clipped fits in the reference frame ----
+    # displacement in ref-frame px: duv = (M_e @ J_{e,n}) @ d_{e,n}; the
+    # fit G maps the measured positions xy0 + duv back onto xy0, so the
+    # true fixed point d = 0 gives G = I
+    fit_kw = dict(fitgeom=cfg.fitgeom, nclip=cfg.nclip, sigma=cfg.sigma,
+                  group=group)
     if cfg.wcsupdate == "otf" and E > 1:
         # update as you go: each exposure is measured against the
         # reference rebuilt with every earlier exposure's update of this
         # iteration. The state at exposure e's measurement is still its
         # iteration-start (Ms[e], ts[e]) — only other exposures' updates
-        # moved the reference — so these fits are the iteration's fits
-        uv_l, w_l, fit_l, esc_l = [], [], [], []
+        # moved the reference — so these fits are the iteration's fits.
+        # A rank's block holds parts of frames, so under a mesh every
+        # sub-step measures the whole block and reads exposure e's fit
         cur_M, cur_t = Ms, ts
+        uv = torch.zeros((Bl, 2), device=dev)
+        wgt = torch.zeros(Bl, device=dev)
+        recs, esc_l = [], []
         for e in range(E):
-            drz, driz_esc = drizzle_all(cur_M, cur_t)
-            dxy_e, ok_e, pk_e, esc_e = measure(drz, cur_M, cur_t,
-                                               slice(e, e + 1))
-            esc_l.append(esc_e[0] + driz_esc[e])
-            MJ_e = torch.einsum("ij,njk->nik", Ms[e], a.jac[e])
-            uv_e = a.xy0[e] + torch.einsum("nik,nk->ni", MJ_e, dxy_e[0])
-            w_e = fit_weights(a.src_valid[e], ok_e[0], pk_e[0], a.src_w[e])
-            fit_e = iter_linear_fit(uv_e[None], a.xy0[e][None], w_e[None],
-                                    fitgeom=cfg.fitgeom, nclip=cfg.nclip,
-                                    sigma=cfg.sigma)
-            newMe = fit_e.matrix[0] @ Ms[e]
-            newte = fit_e.matrix[0] @ ts[e] + fit_e.shift[0]
+            rows, uv_e, wgt_e, esc_e = measure(cur_M, cur_t, e)
+            fit_e = iter_linear_fit_frames(uv_e, b.xy0[rows], b.fid[rows],
+                                           E, wxy=wgt_e, **fit_kw)
+            newMe = fit_e.matrix[e] @ cur_M[e]
+            newte = fit_e.matrix[e] @ cur_t[e] + fit_e.shift[e]
             cur_M = torch.cat([cur_M[:e], newMe[None], cur_M[e + 1:]])
             cur_t = torch.cat([cur_t[:e], newte[None], cur_t[e + 1:]])
-            uv_l.append(uv_e)
-            w_l.append(w_e)
-            fit_l.append(fit_e)
-        uv = torch.stack(uv_l)
-        wgt = torch.stack(w_l)
-        fit = LinearFitResult(*(torch.cat(parts) for parts in zip(*fit_l)))
+            sel = b.fid[rows] == e
+            uv[rows] = torch.where(sel[:, None], uv_e, uv[rows])
+            wgt[rows] = torch.where(sel, wgt_e, wgt[rows])
+            recs.append([v[e] for v in fit_e[:-1]])
+            esc_l.append(esc_e[e])
+        fit = LinearFitResult(*(torch.stack(v) for v in zip(*recs)), wgt)
         newM, newt = cur_M, cur_t
         escaped = torch.stack(esc_l)
     else:
-        drz, escaped = drizzle_all(Ms, ts)
-        dxy, meas_ok, peak, blot_esc = measure(drz, Ms, ts)
-        escaped = escaped + blot_esc
-        # ---- per-exposure sigma-clipped fit in the reference frame ----
-        # displacement in ref-frame px: duv = (M_e @ J_{e,n}) @ d_{e,n};
-        # the fit G maps the measured positions xy0 + duv back onto xy0,
-        # so the true fixed point d = 0 gives G = I
-        MJ = torch.einsum("eij,enjk->enik", Ms, a.jac)
-        uv = a.xy0 + torch.einsum("enik,enk->eni", MJ, dxy)
-        wgt = fit_weights(a.src_valid, meas_ok, peak, a.src_w)
-        fit = iter_linear_fit(uv, a.xy0, wgt, fitgeom=cfg.fitgeom,
-                              nclip=cfg.nclip, sigma=cfg.sigma)
+        _, uv, wgt, escaped = measure(Ms, ts)
+        fit = iter_linear_fit_frames(uv, b.xy0, b.fid, E, wxy=wgt, **fit_kw)
         newM = torch.einsum("eij,ejk->eik", fit.matrix, Ms)
         newt = torch.einsum("eij,ej->ei", fit.matrix, ts) + fit.shift
     G_M, G_t = fit.matrix, fit.shift
 
     # ---- eps_shift metric: rms incremental source motion, with the
     # common-mode motion of a multi-exposure stack projected out ----
-    moved = _affine_apply_pts(G_M, G_t, uv) - uv
+    moved = (torch.einsum("nij,nj->ni", G_M[b.fid], uv) + G_t[b.fid]
+             - uv)
     if E > 1:
-        wsum_all = torch.clamp(wgt.sum(), min=1e-12)
-        moved = moved - ((wgt[..., None] * moved).sum(dim=(0, 1),
-                                                      keepdim=True)
-                         / wsum_all)
+        red = psum(torch.cat([wgt.sum()[None],
+                              (wgt[:, None] * moved).sum(0)]))
+        moved = moved - red[1:][None] / torch.clamp(red[0], min=1e-12)
     move2 = (moved * moved).sum(-1)
-    wsum = torch.clamp(wgt.sum(1), min=1e-12)
-    rms_move = torch.sqrt((wgt * move2).sum(1) / wsum)
+    oh = (b.fid[:, None] == torch.arange(E, device=dev)[None]).to(
+        torch.float32)                                        # (Bl, E)
+    red = psum(torch.stack([(oh * wgt[:, None]).sum(0),
+                            (oh * (wgt * move2)[:, None]).sum(0)]))
+    rms_move = torch.sqrt(red[1] / torch.clamp(red[0], min=1e-12))
 
     info = dict(G_M=G_M, G_t=G_t, rms=fit.rms, rmse=fit.rmse, mae=fit.mae,
                 nmatches=fit.nmatches, max_shift=rms_move.max(),
@@ -592,15 +656,49 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, dri_ratios, big_shape,
     if track_corr:
         # ---- total correction magnitude: an upper bound on how far
         # any cutout's blot window has moved from its setup position ----
-        dM = newM - torch.eye(2, dtype=newM.dtype, device=newM.device)[None]
-        dpts = torch.einsum("eij,enj->eni", dM, a.xy0) + newt[:, None, :]
-        dnorm = torch.where(a.src_valid, torch.sqrt((dpts * dpts).sum(-1)),
-                            torch.zeros_like(dpts[..., 0]))
+        dM = newM - torch.eye(2, dtype=newM.dtype, device=dev)[None]
+        dpts = torch.einsum("nij,nj->ni", dM[b.fid], b.xy0) + newt[b.fid]
+        dnorm = torch.where(b.valid, torch.sqrt((dpts * dpts).sum(-1)),
+                            torch.zeros_like(dpts[:, 0]))
         maxdim = max(cut_shape) if big_shape is None else max(*cut_shape,
                                                               *big_shape)
-        info["max_corr"] = (dnorm.max() + dM.abs().sum(dim=(1, 2)).max()
-                            * (maxdim * 0.5))
+        dmax = dnorm.max()[None]
+        if group is not None:
+            dist.all_reduce(dmax, op=dist.ReduceOp.MAX, group=group)
+        info["max_corr"] = (dmax[0]
+                            + dM.abs().sum(dim=(1, 2)).max() * (maxdim * 0.5))
     return newM, newt, info
+
+
+def _canon(dev) -> torch.device:
+    """``dev`` with its index: a CUDA device named without one is the
+    current device (under a mesh, this rank's card)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _broadcast_catalogs(cats, seg_planes, mesh):
+    """Rank 0's catalog tables and segmentation planes, on every rank.
+
+    Every rank runs the setup, but on the card kernel B1's atomics sum
+    in an order that changes from run to run, so two ranks' drizzled
+    references, and the catalogs found on them, may differ in their last
+    bits. Every shape the loop's collectives depend on (the source count,
+    the cutout shape, the bucket) is derived from the catalog: ranks that
+    disagreed on it would wait on each other forever."""
+    obj = [(cats, [None if isinstance(sp, torch.Tensor) else sp
+                   for sp in seg_planes])]
+    dist.broadcast_object_list(obj, src=0, group=mesh.group)
+    cats, host = obj[0]
+    out = []
+    for sp, hp in zip(seg_planes, host):
+        if isinstance(sp, torch.Tensor):
+            sp = sp.contiguous()
+            dist.broadcast(sp, src=0, group=mesh.group)
+        out.append(sp if isinstance(sp, torch.Tensor) else hp)
+    return cats, out
 
 
 @full_f32()
@@ -638,6 +736,17 @@ def align_images(
     ``resample`` must live on the same device. ``verbose`` runs the host
     loop and prints each iteration's records as JSON. Input exposures are
     not mutated: corrected copies are returned.
+
+    ``mesh`` (a :class:`~subpixal_tpu_torch.parallel.Mesh`, from
+    ``parallel.make_mesh``) runs every iteration over the ranks of its
+    process group, one device each: every rank calls ``align_images``
+    with the same arguments, runs the setup, and takes its block of the
+    frames for the re-drizzle and of the (frame, source) cutout batch for
+    the measurement; the accumulators and the fits' moments are summed
+    over the ranks, so every rank returns the same result. The loop runs
+    on ``mesh.device``, whose type ``device`` must name. Both
+    ``wcsupdate`` modes, the oversized bucket and the sparse deposit run
+    under a mesh.
     """
     if config is None:
         config = AlignConfig(
@@ -646,10 +755,18 @@ def align_images(
             wcsupdate=wcsupdate, max_iterations=max_iterations,
             eps_shift=eps_shift, history=history, **kw)
     cfg = config
-    if mesh is not None:
-        raise _not_in_slice("align_images(mesh=...)", "A15")
     _check_config(cfg)
     dev = torch.device(device)
+    if mesh is not None:
+        if mesh.device.type != dev.type:
+            raise ValueError(f"mesh runs on {mesh.device}, but "
+                             f"device={device}")
+        dev = mesh.device
+        if getattr(resample, "spatial_mesh", None) is not None:
+            raise ValueError(
+                "mesh= (frame-sharded align) and a spatial_mesh Drizzle "
+                "(row-band-sharded reference plane) are mutually exclusive "
+                "— the two shard the same devices differently")
 
     if resample is None:
         if exposures is None:
@@ -657,7 +774,7 @@ def align_images(
         resample = Drizzle(list(exposures), pixfrac=cfg.pixfrac,
                            kernel=cfg.kernel, wht_type=cfg.wht_type,
                            device=dev)
-    elif resample.device != dev:
+    elif _canon(resample.device) != _canon(dev):
         raise ValueError(f"resample lives on {resample.device}, but "
                          f"device={dev}")
     if cfg.match_sky or cfg.static_mask or cfg.reject_cr:
@@ -727,6 +844,8 @@ def align_images(
     seg_planes = [c.segmentation_device
                   if getattr(c, "segmentation_device", None) is not None
                   else c.segmentation for c in cat_list]
+    if mesh is not None and mesh.size > 1:
+        cats, seg_planes = _broadcast_catalogs(cats, seg_planes, mesh)
     t = _mark("catalog", t)
     have_seg = any(s is not None for s in seg_planes)
     n_tot = sum(len(c) for c in cats)
@@ -1037,6 +1156,7 @@ def align_images(
             args = dataclasses.replace(args, exp_data=dep[0],
                                        exp_wht=dep[1], dri_px=dep[2],
                                        dri_py=dep[3])
+            # (under a mesh the compacted blocks are split by frame below)
             # the live set is policed against the applied corrections
             # (max_corr) and self-heals when they outgrow this margin
             sparse = dict(bb=bb, nb_total=nb_total, margin=float(margin),
@@ -1045,6 +1165,9 @@ def align_images(
             setup_breakdown["sparse_live_frac"] = round(
                 idx.shape[-1] / nb_total, 4)
         t = _mark("sparse_blocks", t)
+    blk = _block(args, mesh, cfg, dri_ratios)
+    if mesh is not None:
+        t = _mark("mesh_stage", t)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # staging is charged to setup
     t = _mark("stage_args", t)
@@ -1059,7 +1182,7 @@ def align_images(
         caller re-enters the fixed point from the current state. Two heals
         are attempted (each raises the margin to the correction at heal
         time), then a breach only warns. Returns True to re-enter."""
-        nonlocal args
+        nonlocal args, blk
         if max_corr <= sparse["margin"]:
             return False
         if sparse["heals"] < 2:
@@ -1085,6 +1208,8 @@ def align_images(
             args = dataclasses.replace(args, exp_data=dep[0],
                                        exp_wht=dep[1], dri_px=dep[2],
                                        dri_py=dep[3])
+            # (under a mesh, re-padded and re-split by frame)
+            blk = _block(args, mesh, cfg, dri_ratios)
             sparse["margin"] = float(max_corr + margin)
             setup_breakdown["sparse_live_frac"] = round(
                 idx2.shape[-1] / sparse["nb_total"], 4)
@@ -1116,6 +1241,12 @@ def align_images(
             hist.append(recs)
         else:
             hist[-1] = recs
+
+    def step(Ms, ts):
+        """One iteration from state (Ms, ts): on this device, or over the
+        mesh's ranks."""
+        return _step(cfg, out_shape, cut_shape, big_hw, blk, Ms, ts,
+                     mesh=mesh, track_corr=sparse is not None)
 
     # 'auto' runs the device loop unless verbose, which needs the host loop
     dev_loop = (not verbose) if cfg.device_loop == "auto" \
@@ -1156,9 +1287,7 @@ def align_images(
         converged = False
         t_it = time.time()
         for it in range(T):
-            Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios,
-                                 big_hw, args, Ms, ts,
-                                 track_corr=sparse is not None)
+            Ms, ts, info = step(Ms, ts)
             for k, buf in hist_d.items():
                 buf[it] = info[k]
             n_new += 1
@@ -1178,9 +1307,7 @@ def align_images(
         healed = False
         for _ in range(T):
             t_it = time.time()
-            Ms, ts, info = _step(cfg, out_shape, cut_shape, dri_ratios,
-                                 big_hw, args, Ms, ts,
-                                 track_corr=sparse is not None)
+            Ms, ts, info = step(Ms, ts)
             h = {k: info[k].cpu().numpy() for k in fit_keys}
             recs = make_recs(n_iter, h, time.time() - t_it)  # incl. the read
             n_iter += 1

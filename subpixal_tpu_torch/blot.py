@@ -16,7 +16,10 @@ exact tangent-plane homography -> pixel``:
   the align setup uses them on CUDA (``cutout_pixmaps='auto'``) and for
   frames of at least :func:`device_pixmap_min_pixels` pixels;
 * :func:`blot_image` / :func:`blot_cutout` sample a reference image at a
-  pixmap, through kernel B2 (:mod:`subpixal_tpu_torch.kernels.blot`).
+  pixmap, through kernel B2 (:mod:`subpixal_tpu_torch.kernels.blot`);
+* :func:`blot_measure` is the align iteration's measurement: blot the
+  reference at affine-moved cutout pixmaps (B2) and measure each blotted
+  cutout against its image cutout (B3 for ``usfac > 1``).
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ import torch
 
 from .cutout import Cutout
 from .kernels.blot import sample_cutouts
+from .kernels.measure import measure_window
+from .ops.correlate import Displacement, find_displacement
 from .ops.interp import sample_image
 from .wcs import TanWCS, tangent_homography
 
 __all__ = ["compute_pixmap", "compute_pixmap_device",
            "compute_pixmap_device_stack", "compute_cutout_pixmaps_device",
            "compute_cutout_pixmaps_device_stack", "device_pixmap_min_pixels",
-           "blot_image", "blot_cutout"]
+           "blot_image", "blot_cutout", "blot_measure"]
 
 
 _PIXMAP_CACHE: dict = {}
@@ -529,3 +534,45 @@ def blot_cutout(source_cutout: Cutout, image_cutout: Cutout,
         blc=image_cutout.blc, src_pos=image_cutout.src_pos,
         mask=valid.cpu().numpy() & np.asarray(image_cutout.mask, bool),
         exptime=image_cutout.exptime, data_units=out_units)
+
+
+def _affine_apply_grid(M, t, gx, gy):
+    """Apply per-entry affines (..., 2, 2), (..., 2) to coordinate grids
+    whose leading axes match M's batch axes."""
+    extra = gx.dim() - (M.dim() - 2)
+
+    def b(a):
+        return a.reshape(a.shape + (1,) * extra)
+
+    nx = b(M[..., 0, 0]) * gx + b(M[..., 0, 1]) * gy + b(t[..., 0])
+    ny = b(M[..., 1, 0]) * gx + b(M[..., 1, 1]) * gy + b(t[..., 1])
+    return nx, ny
+
+
+def blot_measure(image: torch.Tensor, M: torch.Tensor, t: torch.Tensor,
+                 px: torch.Tensor, py: torch.Tensor, img: torch.Tensor,
+                 mask: torch.Tensor, seg: torch.Tensor | None = None,
+                 interp: str = "poly5",
+                 **measure_kw) -> tuple[Displacement, torch.Tensor]:
+    """Blot ``image`` at cutout pixmaps moved by per-cutout affines and
+    measure each blotted cutout against its image cutout.
+
+    ``px``, ``py`` (B, h, w) are pixmaps into ``image``'s frame, moved by
+    ``M`` (B, 2, 2), ``t`` (B, 2) and sampled with kernel B2 on CUDA;
+    ``img`` (B, h, w) are the image cutouts and ``mask`` (B, h, w) bool
+    their valid pixels, AND-ed with the blot's validity; ``seg`` (B, h, w),
+    when given, multiplies both sides. The displacements of the blotted
+    cutouts relative to ``img`` come from ``find_displacement`` with its
+    windowed ``usfac > 1`` measurement through kernel B3 on CUDA
+    (``measure_kw``: its options). Returns the displacements and the (B,)
+    int32 blot escapes.
+    """
+    bx, by = _affine_apply_grid(M, t, px, py)
+    vals, ok, esc = sample_cutouts(image.contiguous(), bx, by, interp=interp)
+    msk = mask & ok
+    if seg is not None:
+        img = img * seg
+        vals = vals * seg
+    d = find_displacement(vals, img.contiguous(), ref_mask=msk, img_mask=msk,
+                          measure=measure_window, **measure_kw)
+    return d, esc

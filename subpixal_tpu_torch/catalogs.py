@@ -2,13 +2,17 @@
 
 Counterpart of ``subpixal_tpu/catalogs/__init__.py`` (its ``Table``,
 sigma-clipped statistics, the multi-threshold deblender, ``find_sources``,
-``ImageCatalog`` and ``ImageSourceCatalog``), carried into the port as
-numpy so that importing it never loads JAX. Labeling runs in the host C++
-union-find of :mod:`subpixal_tpu_torch._native`. The SExtractor wrappers
-of the JAX package are not part of this slice.
+``ImageCatalog``, ``ImageSourceCatalog`` and the SExtractor wrappers
+``SExCatalog`` and ``SExImageCatalog``), carried into the port as numpy
+so that importing it never loads JAX. Labeling runs in the host C++
+union-find of :mod:`subpixal_tpu_torch._native`.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
+import subprocess
 
 import numpy as np
 
@@ -18,6 +22,8 @@ __all__ = [
     "Table",
     "ImageCatalog",
     "ImageSourceCatalog",
+    "SExCatalog",
+    "SExImageCatalog",
     "find_sources",
     "sigma_clipped_stats",
 ]
@@ -352,3 +358,112 @@ class ImageSourceCatalog(ImageCatalog):
         )
         self._rawcat = cat
         self.segmentation = seg
+
+
+class SExCatalog(ImageCatalog):
+    """Wrap an existing SExtractor ASCII catalog (reference parity).
+
+    Parses ``ASCII_HEAD``-style output (``# N NAME`` header lines). The
+    1-based ``X_IMAGE``/``Y_IMAGE`` columns are converted to 0-based
+    ``x``/``y``; ``FLUX_*`` maps to ``flux`` (reference behavior:
+    1-based->0-based conversion, SURVEY §2 #6).
+    """
+
+    _FLUX_PREFERENCE = ("FLUX_AUTO", "FLUX_ISO", "FLUX_BEST", "FLUX_APER")
+
+    def __init__(self, catalog_file: str, segmentation_file: str | None = None):
+        super().__init__()
+        self.catalog_file = catalog_file
+        self.segmentation_file = segmentation_file
+
+    def execute(self) -> None:
+        names: list[str] = []
+        rows: list[list[float]] = []
+        with open(self.catalog_file) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                if line.startswith("#"):
+                    parts = line[1:].split()
+                    if len(parts) >= 2 and parts[0].isdigit():
+                        idx = int(parts[0])
+                        while len(names) < idx:
+                            names.append(f"col{len(names) + 1}")
+                        names[idx - 1] = parts[1].upper()
+                    continue
+                rows.append([float(v) for v in line.split()])
+        if not rows:
+            self._rawcat = Table({"x": np.zeros(0), "y": np.zeros(0),
+                                  "flux": np.zeros(0)})
+            return
+        arr = np.asarray(rows, np.float64)
+        while len(names) < arr.shape[1]:
+            names.append(f"col{len(names) + 1}")
+        t = Table()
+        for i, nm in enumerate(names[: arr.shape[1]]):
+            t[nm] = arr[:, i]
+        # canonical columns (0-based)
+        if "X_IMAGE" in t:
+            t["x"] = t["X_IMAGE"] - 1.0
+            t["y"] = t["Y_IMAGE"] - 1.0
+        for fc in self._FLUX_PREFERENCE:
+            if fc in t:
+                t["flux"] = t[fc]
+                break
+        if "NUMBER" in t:
+            t["id"] = t["NUMBER"].astype(np.int32)
+        self._rawcat = t
+        if self.segmentation_file:
+            from .io.fits import getdata
+
+            self.segmentation = np.asarray(getdata(self.segmentation_file))
+
+
+class SExImageCatalog(SExCatalog):
+    """Run the SExtractor binary on an image (reference parity,
+    ``subpixal/catalogs.py · SExImageCatalog`` — SURVEY §3.3).
+
+    Only usable when a ``sex``/``sextractor`` binary is installed;
+    :class:`ImageSourceCatalog` is the built-in default.
+    """
+
+    def __init__(self, image: str, sexconfig: str,
+                 sextractor_cmd: str | None = None, workdir: str | None = None):
+        self.image = image
+        self.sexconfig = sexconfig
+        self.sextractor_cmd = sextractor_cmd or self._find_sextractor()
+        self.workdir = workdir or os.path.dirname(os.path.abspath(image)) or "."
+        # absolute output paths: SExtractor runs with cwd=workdir, so a
+        # relative workdir would double up in the subprocess's outputs
+        cat_file = os.path.abspath(os.path.join(
+            self.workdir, os.path.basename(image) + ".cat"))
+        seg_file = os.path.abspath(os.path.join(
+            self.workdir, os.path.basename(image) + "_seg.fits"))
+        super().__init__(cat_file, seg_file)
+
+    @staticmethod
+    def _find_sextractor() -> str | None:
+        for cmd in ("sex", "sextractor", "source-extractor"):
+            if shutil.which(cmd):
+                return cmd
+        return None
+
+    def execute(self) -> None:
+        if self.sextractor_cmd is None:
+            raise RuntimeError(
+                "no SExtractor binary found on PATH; use "
+                "ImageSourceCatalog (the built-in native finder) instead"
+            )
+        # absolute paths: the subprocess runs with cwd=workdir, so
+        # caller-relative image/config paths would resolve wrongly there
+        cmd = [
+            self.sextractor_cmd, os.path.abspath(self.image),
+            "-c", os.path.abspath(self.sexconfig),
+            "-CATALOG_NAME", self.catalog_file,
+            "-CHECKIMAGE_TYPE", "SEGMENTATION",
+            "-CHECKIMAGE_NAME", self.segmentation_file,
+        ]
+        subprocess.run(cmd, check=True, capture_output=True,
+                       cwd=self.workdir)
+        super().execute()

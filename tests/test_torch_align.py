@@ -143,18 +143,21 @@ def test_history_last_keeps_one_record():
         align_images(exposures=exps, device="cpu", min_sources=500)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A15"),
-])
-def test_left_out_branches_raise(kw, item):
-    exps, _ = simulate_stack(n_exp=2, shape=(96, 96), n_stars=4, seed=1)
-    with pytest.raises(NotImplementedError, match=item):
-        align_images(exposures=exps, device="cpu", **kw)
-
-
 def test_device_mismatch_and_use_pallas_false_raise():
     exps, _ = simulate_stack(n_exp=2, shape=(96, 96), n_stars=4, seed=1)
     with pytest.raises(ValueError, match="use_pallas"):
         align_images(exposures=exps, device="cpu", use_pallas=False)
     with pytest.raises(ValueError, match="device"):
         align_images(resample=Drizzle(exps, device="meta"), device="cpu")
+
+
+def test_cuda_device_without_index_is_the_current_device(monkeypatch):
+    """A CUDA device named without an index is the current device (under a
+    mesh, the rank's card), in the check that ``resample`` and ``device``
+    agree: 'cuda' then equals 'cuda:1' and differs from 'cuda:0'."""
+    from subpixal_tpu_torch.align import _canon
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert _canon("cuda") == torch.device("cuda", 1) == _canon("cuda:1")
+    assert _canon(torch.device("cuda")) != _canon("cuda:0")
+    assert _canon("cpu") == torch.device("cpu") == _canon(torch.device("cpu"))

@@ -43,10 +43,9 @@ def test_48_cutouts_match_jax(config, monkeypatch):
         shapes["jax"].append((tuple(cut_shape), a[-1]))
         return j_build(cfg, out_shape, cut_shape, *a)
 
-    def t_spy(cfg, out_shape, cut_shape, dri_ratios, big_shape, *a, **k):
+    def t_spy(cfg, out_shape, cut_shape, big_shape, *a, **k):
         shapes["port"].append((tuple(cut_shape), big_shape))
-        return t_step(cfg, out_shape, cut_shape, dri_ratios, big_shape, *a,
-                      **k)
+        return t_step(cfg, out_shape, cut_shape, big_shape, *a, **k)
 
     monkeypatch.setattr(JA, "_build_step_cached", j_spy)
     monkeypatch.setattr(TA, "_step", t_spy)

@@ -773,3 +773,113 @@ def test_nanmedian_on_card_matches_numpy(card, shape, dim):
         want = np.nanmedian(x, axis=dim)
     got = nanmedian(torch.tensor(x, device=card), dim=dim)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+#: the JAX package's align configuration, 4 iterations, for the mesh tests
+_MESH_KW = dict(fitgeom="shift", usfac=8, fit_type="gaussian",
+                max_iterations=4, eps_shift=1e-9)
+
+
+def _same_as_one_device(res, one):
+    """The JAX package's mesh bar (tests/test_mesh_align.py) between a
+    mesh run and the one-device run; ``res`` as a dict of lists."""
+    assert res["n_iterations"] == one.n_iterations
+    assert np.abs(np.asarray(res["shifts"]) - one.shifts).max() < 5e-4
+    np.testing.assert_allclose(res["matrices"], one.matrices, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_mesh_one_nccl_rank_on_card_matches_one_device(card):
+    """``mesh=make_mesh(1)``: one NCCL rank on an in-memory store; B1 once
+    at setup and once an iteration, B2 and B3 once an iteration."""
+    import torch.distributed as dist
+
+    from subpixal_tpu_torch.parallel import make_mesh
+
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    one = align_images(exposures=exps, device="cuda", **_MESH_KW)
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend(mesh.group) == "nccl"
+        kernels.reset_launch_counts()
+        res = align_images(exposures=exps, device="cuda", mesh=mesh,
+                           **_MESH_KW)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    n = res.n_iterations
+    assert launches == {"drizzle_deposit": 1 + n, "blot_gather": n,
+                        "measure_displacement": n}
+    _same_as_one_device(dict(n_iterations=n, shifts=res.shifts,
+                             matrices=res.matrices), one)
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+
+
+_TWO_RANKS_ON_ONE_CARD = r"""
+import json, sys
+import torch
+from subpixal_tpu_torch import align_images, kernels
+from subpixal_tpu_torch.parallel import init_distributed, make_mesh
+from subpixal_tpu_torch.testing import simulate_stack
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed(addr, world, rank, backend="gloo")
+mesh = make_mesh(world, device="cuda:0")
+exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+kernels.reset_launch_counts()
+res = align_images(exposures=exps, device="cuda", mesh=mesh, **json.loads(
+    sys.argv[4]))
+print("RESULT " + json.dumps(dict(
+    shifts=res.shifts.tolist(), matrices=res.matrices.tolist(),
+    n_iterations=res.n_iterations, launches=dict(kernels.LAUNCHES))),
+    flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_mesh_two_gloo_ranks_share_one_card(card):
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    card): 3 frames padded to 4, each rank's B1 once at setup and once an
+    iteration on its 2 planes (rank 1's second is a weight-0 pad), B2 and
+    B3 once an iteration on its half of the cutout batch."""
+    import json
+
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    one = align_images(exposures=exps, device="cuda", **_MESH_KW)
+    outs = SpawnedRanks(_TWO_RANKS_ON_ONE_CARD, 2,
+                        args=(json.dumps(_MESH_KW),)).wait(timeout=300)
+    recs = [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("RESULT "))[7:]) for o in outs]
+    assert recs[0]["shifts"] == recs[1]["shifts"]
+    for r in recs:
+        n = r["n_iterations"]
+        assert r["launches"] == {"drizzle_deposit": 1 + n, "blot_gather": n,
+                                 "measure_displacement": n}
+        _same_as_one_device(r, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_insert_cutouts_on_card_matches_cpu(card, mode):
+    """Overlapping, partly and wholly off-image, masked cutouts: 'set'
+    (one scatter a cutout, in batch order) equals the CPU exactly; 'add'
+    is one index_add_, whose atomics sum in any order."""
+    from subpixal_tpu_torch.ops.cutouts import insert_cutouts
+
+    rng = np.random.default_rng(3)
+    image = torch.tensor(rng.normal(size=(40, 36)), dtype=torch.float32)
+    data = torch.tensor(rng.normal(size=(6, 9, 11)), dtype=torch.float32)
+    blc = torch.tensor([[3, 4], [6, 8], [5, 5], [-4, 30], [35, -6],
+                        [90, 90]], dtype=torch.int32)
+    mask = torch.tensor(rng.random(tuple(data.shape)) > 0.25)
+    want = insert_cutouts(image, data, blc, mask, mode=mode)
+    got = insert_cutouts(*(t.to(card) for t in (image, data, blc, mask)),
+                         mode=mode)
+    assert got.device.type == "cuda"
+    if mode == "set":
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert _close(got.cpu(), want)
