@@ -7,12 +7,15 @@ Run from the root of a checkout, with no arguments::
 
 ``python3 chip_smoke.py --cards N`` (a machine with N cards) builds the
 kernels, runs phase 9 on one card and then phase 15's checks on phase
-9's configuration over N NCCL ranks, one card each.
+9's configuration over N NCCL ranks, one card each, and phase 16's over
+N NCCL bands, a card each (and over a (2, 2) frames-by-rows mesh when N
+is 4).
 
 ``python3 chip_smoke.py --profile [--root DIR]`` builds the kernels and
 instead measures device time with ``torch.profiler``: one iteration's
 re-drizzle as the package's align step runs it, the kernels per launch,
-and one warm align call of each path. ``--root DIR`` imports the package
+and one warm align call of each path (the spatial path on one NCCL
+band among them). ``--root DIR`` imports the package
 from another checkout (a ``git archive`` of an earlier commit), so two
 commits can be compared in one process each on the same card.
 
@@ -109,7 +112,25 @@ failure):
     iteration within 1e-3 px of the same run through the plain versions
     (so each kernel is held to its plain version at the shapes a rank
     gives it). A rank that fails or outlasts its time limit fails the
-    phase.
+    phase;
+16. the spatial path: ``bench.py``'s spatial scene (phase 9's scene and
+    configuration) through ``align_images(resample=Drizzle(exposures,
+    spatial_mesh=mesh))``, first on a one-rank NCCL rows mesh, then on
+    two gloo ranks sharing ``cuda:0`` (two row bands). On each rank, with
+    the launch counts set to 0 just before and read just after: B1 once
+    at setup (the stacked execute's per-plane launch into the band) and
+    once an iteration (the stack into the band), B2 once an iteration
+    (on the halo-extended band), B3 once an iteration (the replicated
+    measurement); the band-local finder (a spy) run on the card; fit
+    error under 10 mpix; the first iteration within 1e-3 px of the same
+    run through the plain versions. The ranks' shifts equal, and within
+    2e-3 px of phase 9's. Each run prints cold and warm ms per iteration,
+    ``setup_s`` with its breakdown and the rank's memory peak;
+17. the spatial 4k path: ``bench.py``'s 4 × 4096², 80-star, seed-23
+    scene on two gloo ranks sharing the card for 2 iterations, with phase
+    16's checks (no reference run) and the band-local sparse deposit
+    engaged: ``sparse_live_frac`` in the setup breakdown and B1 given the
+    compacted (E, L·16, 128) blocks in the loop.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -669,13 +690,22 @@ def _plain_versions():
     from subpixal_tpu_torch import resample as resample_mod
     from subpixal_tpu_torch.ops.correlate import measure_window
 
+    patches = [
+        (align_mod, "drizzle_deposit_stack", _plain_deposit_stack),
+        (blot_mod, "sample_cutouts", _plain_gather),
+        (blot_mod, "measure_window", measure_window),
+        (resample_mod, "drizzle_deposit", _plain_deposit),
+        (resample_mod, "drizzle_deposit_stack", _plain_deposit_stack)]
+    try:  # the spatial mosaics' band deposits and band gathers
+        from subpixal_tpu_torch.parallel import spatial as spatial_mod
+    except ImportError:  # a checkout from before the spatial mosaics
+        spatial_mod = None
+    if spatial_mod is not None:
+        patches += [
+            (spatial_mod, "drizzle_deposit_stack", _plain_deposit_stack),
+            (spatial_mod, "sample_cutouts", _plain_gather)]
     stack = ExitStack()
-    for mod, name, fn in (
-            (align_mod, "drizzle_deposit_stack", _plain_deposit_stack),
-            (blot_mod, "sample_cutouts", _plain_gather),
-            (blot_mod, "measure_window", measure_window),
-            (resample_mod, "drizzle_deposit", _plain_deposit),
-            (resample_mod, "drizzle_deposit_stack", _plain_deposit_stack)):
+    for mod, name, fn in patches:
         stack.enter_context(mock.patch.object(mod, name, fn))
     return stack
 
@@ -801,7 +831,7 @@ def phase_mesh_one_rank(dev, ref):
     from subpixal_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(1)
-    backend = dist.get_backend(mesh.group)
+    backend = dist.get_backend(mesh.group())
     print(f"mesh path, one rank: {mesh}, backend {backend}")
     if backend != "nccl":
         raise AssertionError(f"make_mesh(1) on the card took {backend}")
@@ -933,6 +963,196 @@ def phase_mesh_ranks(ref, world=2, backend="gloo", device="cuda:0"):
     print(f"{label} vs the reference run: max |dshift| {d:.3e} px")
     if not d < 5e-4:
         raise AssertionError(f"{label} differ from the reference by {d} px")
+    return recs[0]["launches"], recs[0]
+
+
+#: the spatial mosaics' scenes (``bench.py``'s): exposures, frame shape,
+#: stars, seed
+SPATIAL_SCENES = {"1k": (8, (1024, 1024), 60, 11),     # bench.py:517-566
+                  "4k": (4, (4096, 4096), 80, 23)}     # bench.py:569-609
+
+
+def spatial_run(mesh, scene: str, iters: int) -> dict:
+    """One rank of the spatial path: ``align_images`` through
+    ``Drizzle(spatial_mesh=mesh)`` on ``scene`` with phase 9's
+    configuration for ``iters`` iterations, with the launch counts set to
+    0 just before and read just after, a spy on the band-local finder
+    and on the shapes B1 is given; then a warm second call, and the first
+    iteration through the kernels' plain versions on the card. Every rank
+    of the mesh calls it. Returns a JSON-able record."""
+    import torch
+
+    from subpixal_tpu_torch import catalogs_spatial, kernels
+    from subpixal_tpu_torch.align import align_images
+    from subpixal_tpu_torch.parallel import spatial as spatial_mod
+    from subpixal_tpu_torch.resample import Drizzle
+    from subpixal_tpu_torch.testing import (pairwise_shift_errors,
+                                            simulate_stack)
+
+    n_exp, shape, n_stars, seed = SPATIAL_SCENES[scene]
+    exps, planted = simulate_stack(n_exp=n_exp, shape=shape,
+                                   n_stars=n_stars, seed=seed)
+    kw = dict(device="cuda", eps_shift=1e-7, max_iterations=iters,
+              **NEW_PATH)
+    finds, b1_shapes = [], []
+    finder = catalogs_spatial.find_sources_spatial
+    b1 = spatial_mod.drizzle_deposit_stack
+
+    def finder_spy(mesh_, band, *a, **k):
+        finds.append(band.device.type)
+        return finder(mesh_, band, *a, **k)
+
+    def b1_spy(data, *a, **k):
+        b1_shapes.append(tuple(data.shape))
+        return b1(data, *a, **k)
+
+    def run(**over):
+        return align_images(resample=Drizzle(exps, spatial_mesh=mesh),
+                            **dict(kw, **over))
+
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with mock.patch.object(catalogs_spatial, "find_sources_spatial",
+                           finder_spy), \
+            mock.patch.object(spatial_mod, "drizzle_deposit_stack", b1_spy):
+        res = run()
+    torch.cuda.synchronize(mesh.device)
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    warm = run()
+    with _plain_versions():
+        res_p = run(max_iterations=1)
+    plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+                     for a, b in zip(res.history[0], res_p.history[0]))
+    return dict(
+        device=str(mesh.device), mesh=repr(mesh), launches=launches,
+        finds=finds, b1_shapes=b1_shapes, wall=wall, plain_diff=plain_diff,
+        shifts=np.asarray(res.shifts).tolist(),
+        n_iterations=res.n_iterations,
+        err_mpix=1e3 * pairwise_shift_errors(res.shifts, planted),
+        nmatches=res.history[0][0].nmatches, setup_s=res.setup_s,
+        iter_ms=1e3 * res.history[-1][0].iter_s, warm_setup_s=warm.setup_s,
+        warm_iter_ms=1e3 * warm.history[-1][0].iter_s,
+        setup_breakdown=res.setup_breakdown,
+        warm_setup_breakdown=warm.setup_breakdown, peak_bytes=peak)
+
+
+def _check_spatial(label, recs, iters, ref=None, sparse=False):
+    """Phase 16/17 checks on every rank's ``spatial_run`` record: B1 once
+    at setup and once an iteration, B2 and B3 once an iteration, the
+    band-local finder run on the card, fit error under 10 mpix, the first
+    iteration within 1e-3 px of the plain versions, the ranks' shifts
+    equal and (``ref``: phase 9's result) within 2e-3 px of the run
+    without a spatial mesh; ``sparse``: the band-local sparse deposit
+    engaged and B1 took its compacted blocks in the loop."""
+    for r in recs:
+        n, la = r["n_iterations"], r["launches"]
+        print(f"{label}, {r['mesh']}: launches {la}, band-local finder "
+              f"calls {r['finds']}, {n} iterations, fit error "
+              f"{r['err_mpix']:.3f} mpix, sources {r['nmatches']}; first "
+              f"call setup_s {r['setup_s']:.3f}, {r['iter_ms']:.3f} ms per "
+              f"iteration, wall {r['wall']:.2f} s; second call setup_s "
+              f"{r['warm_setup_s']:.3f}, {r['warm_iter_ms']:.3f} ms per "
+              f"iteration; memory peak {r['peak_bytes'] / 2**20:.1f} MiB")
+        for key in ("setup_breakdown", "warm_setup_breakdown"):
+            print(f"{label}, {r['mesh']}, {key}: " + json.dumps(
+                {k: round(v, 4) for k, v in r[key].items()}))
+        print(f"{label}, {r['mesh']}: B1 inputs {r['b1_shapes'][:3]}; "
+              f"first-iteration shifts vs plain versions: max |diff| "
+              f"{r['plain_diff']:.3e} px")
+        if (n != iters or la["drizzle_deposit"] != 1 + n
+                or la["blot_gather"] != n or la["measure_displacement"] != n):
+            raise AssertionError(f"{label}: {r['mesh']} launched {la} in "
+                                 f"{n} iterations")
+        if not r["finds"] or any(d != "cuda" for d in r["finds"]):
+            raise AssertionError(f"{label}: the band-local finder ran on "
+                                 f"{r['finds']}")
+        if not r["err_mpix"] < 10.0:
+            raise AssertionError(f"{label}: fit error {r['err_mpix']} mpix")
+        if not r["plain_diff"] < 1e-3:
+            raise AssertionError(f"{label}: {r['mesh']}'s first iteration "
+                                 f"differs from the plain run by "
+                                 f"{r['plain_diff']} px")
+        if sparse and ("sparse_live_frac" not in r["setup_breakdown"]
+                       or any(sh[-1] != 128 for sh in r["b1_shapes"][1:])):
+            raise AssertionError(f"{label}: the band-local sparse deposit "
+                                 f"did not engage: {r['setup_breakdown']}, "
+                                 f"B1 on {r['b1_shapes']}")
+    if any(r["shifts"] != recs[0]["shifts"] for r in recs):
+        raise AssertionError(f"{label}: the ranks returned different shifts")
+    if ref is not None:
+        d = float(np.abs(np.asarray(recs[0]["shifts"])
+                         - np.asarray(ref.shifts)).max())
+        print(f"{label} vs phase 9 without a spatial mesh: max |dshift| "
+              f"{d:.3e} px")
+        if not d < 2e-3:
+            raise AssertionError(f"{label} differs from phase 9 by {d} px")
+
+
+def phase_spatial_one_rank(ref):
+    """Phase 16, first part: ``bench.py``'s spatial scene (8 x 1024²,
+    phase 9's configuration) through ``Drizzle(spatial_mesh=...)`` on a
+    one-rank NCCL rows mesh. Returns the launch counts and the record."""
+    import torch.distributed as dist
+
+    from subpixal_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, axis_name="rows")
+    if dist.get_backend(mesh.group()) != "nccl":
+        raise AssertionError("make_mesh(1) on the card did not take NCCL")
+    try:
+        rec = spatial_run(mesh, "1k", 4)
+    finally:
+        dist.destroy_process_group()
+    _check_spatial("spatial path, one NCCL band", [rec], 4, ref)
+    return rec["launches"], rec
+
+
+#: one rank of the spatial path: argv[4] the backend, argv[5] the rank's
+#: device ('auto': cuda:LOCAL_RANK), argv[6] the scene, argv[7] the
+#: iterations, argv[8] the mesh ('rows', or 'FxR' for make_mesh2d)
+_SPATIAL_RANK = r"""
+import json, sys
+
+from subpixal_tpu_torch.parallel import (init_distributed, make_mesh,
+                                         make_mesh2d)
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+backend, device, scene, iters, shape = sys.argv[4:9]
+init_distributed(addr, world, rank, backend=backend)
+dev = None if device == "auto" else device
+if shape == "rows":
+    mesh = make_mesh(world, axis_name="rows", device=dev)
+else:
+    mesh = make_mesh2d(*map(int, shape.split("x")), device=dev)
+from chip_smoke import spatial_run
+
+rec = spatial_run(mesh, scene, int(iters))
+print("RESULT " + json.dumps(dict(rec, rank=rank)), flush=True)
+"""
+
+
+def phase_spatial_ranks(label, world, backend="gloo", device="cuda:0",
+                        scene="1k", iters=4, shape="rows", ref=None,
+                        sparse=False):
+    """Phases 16 (two gloo ranks sharing ``cuda:0``: two bands) and 17
+    (the 4 × 4096² scene so), and ``--cards N``'s spatial runs (N NCCL
+    bands, a card each; a (2, 2) mesh): ``spatial_run`` in ``world``
+    processes, held by :func:`_check_spatial`. Returns rank 0's launch
+    counts and record."""
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    t0 = time.time()
+    outs = SpawnedRanks(_SPATIAL_RANK, world, args=(
+        backend, device, scene, iters, shape)).wait(timeout=900)
+    recs = [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("RESULT "))[7:]) for o in outs]
+    print(f"{label}: {time.time() - t0:.2f} s wall for all {world} "
+          "processes (start, import, two align calls and a plain one)")
+    _check_spatial(label, recs, iters, ref, sparse)
     return recs[0]["launches"], recs[0]
 
 
@@ -1310,17 +1530,32 @@ def profile_paths(dev) -> None:
 
         mesh = make_mesh(1)
         cells.append(("mesh path, one NCCL rank", 1.8, dict(new, mesh=mesh)))
+        if importlib.util.find_spec("subpixal_tpu_torch.parallel.spatial"):
+            cells.append(("spatial path, one NCCL band", 1.8,
+                          dict(new, spatial_mesh=mesh)))
     for label, sigma, config in cells:
         exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
                                  seed=11, sigma=sigma)
+        config = dict(config)
+        smesh = config.pop("spatial_mesh", None)
         kw = dict(exposures=exps, device=dev, eps_shift=1e-7,
                   max_iterations=4, **config)
-        align_images(**kw)
+
+        def call():
+            if smesh is None:
+                return align_images(**kw)
+            from subpixal_tpu_torch.resample import Drizzle
+
+            return align_images(
+                resample=Drizzle(exps, spatial_mesh=smesh),
+                **{k: v for k, v in kw.items() if k != "exposures"})
+
+        call()
         torch.cuda.synchronize()
         t0 = time.time()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res = align_images(**kw)
+            res = call()
             torch.cuda.synchronize()
         wall = time.time() - t0
         events = [e for e in prof.key_averages()
@@ -1398,6 +1633,11 @@ def main() -> int:
         _, ref = phase_align(dev, "new path", tuple(kernels.LAUNCHES),
                              **NEW_PATH)
         phase_mesh_ranks(ref, cards, "nccl", "auto")
+        phase_spatial_ranks(f"spatial path, {cards} NCCL bands", cards,
+                            "nccl", "auto", ref=ref)
+        if cards == 4:
+            phase_spatial_ranks("spatial path, (2, 2) NCCL mesh", 4, "nccl",
+                                "auto", shape="2x2", ref=ref)
         return 0
 
     b1 = phase_b1(dev)
@@ -1429,6 +1669,13 @@ def main() -> int:
     }
     runs["mesh_1rank"] = phase_mesh_one_rank(dev, runs["align_usfac8"][1])
     runs["mesh_2ranks"] = phase_mesh_ranks(runs["mesh_1rank"][1])
+    runs["spatial_1band"] = phase_spatial_one_rank(runs["align_usfac8"][1])
+    runs["spatial_2bands"] = phase_spatial_ranks(
+        "spatial path, two gloo bands on one card", 2,
+        ref=runs["align_usfac8"][1])
+    runs["spatial_4k_2bands"] = phase_spatial_ranks(
+        "spatial 4k path, two gloo bands on one card", 2, scene="4k",
+        iters=2, sparse=True)
     # the reference's own bar between the finders (tests/test_align.py)
     d_fin = float(np.abs(runs["defaults"][1].shifts
                          - runs["defaults_host_finder"][1].shifts).max())

@@ -25,8 +25,11 @@ Module map (JAX package -> here):
   utils                  -> catalogs, wcs, fitswcs, io/fits, utils
                                           (host numpy, carried over)
   parallel/distributed,
-  parallel/sharding      -> parallel      (torch.distributed process
-                                           groups; align_images(mesh=))
+  parallel/sharding,
+  parallel/spatial       -> parallel      (torch.distributed process
+                                           groups; align_images(mesh=),
+                                           Drizzle(spatial_mesh=))
+  catalogs/spatial       -> catalogs_spatial (the band-local finder)
 """
 
 from .version import __version__

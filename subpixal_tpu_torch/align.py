@@ -42,11 +42,20 @@ state, and repeat until the ``eps_shift`` test passes.
   launch) and measures its block of the flattened (frame, source) cutout
   batch (B2, B3); the accumulators and the fits' moment sums are
   ``all_reduce``-d over the process group.
+* Through a ``Drizzle(spatial_mesh=...)`` (the JAX package's spatial
+  mode) the reference plane is row-band-sharded, one band a rank: setup
+  finds the sources band-locally (:mod:`subpixal_tpu_torch.catalogs_spatial`)
+  on CUDA or on the gathered plane on the CPU, each rank compacts its
+  band's live blocks for the sparse deposit, and every iteration
+  re-drizzles into the band (B1) and blots through
+  ``parallel.sample_spatial`` (B2 on the halo-extended band), with the
+  measurement and the fits replicated on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 import warnings
@@ -62,12 +71,15 @@ from .blot import (_affine_apply_grid, blot_measure,
                    compute_pixmap_device_stack, device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
+from .catalogs_spatial import SpatialSourceCatalog
 from .cutout import create_primary_cutouts
 from .kernels.drizzle import drizzle_deposit_stack
 from .ops.cutouts import extract_cutouts
 from .ops.drizzle import drizzle_combine, kernel_reach
 from .ops.fit import LinearFitResult, _reducer, iter_linear_fit_frames
 from .ops.interp import sample_image
+from .parallel.sharding import pad_to_multiple
+from .parallel.spatial import _deposit_band, band_rows, sample_spatial
 from .resample import (Drizzle, Exposure, _exposure_stack_key,
                        _stack_planes, _weight_parts, exposure_rate_data)
 from .wcs import apply_tangent_affine
@@ -318,7 +330,7 @@ def _compact_blocks(data, wht, px, py, idx, valid, block=DEPOSIT_BLOCK):
 
 
 def _live_block_indices(bboxes, cut_bb, out_shape, blot_margin: float,
-                        corr_margin: float):
+                        corr_margin: float, bands=None):
     """Input blocks whose deposits can reach any cutout's blot window.
 
     A block is LIVE when its output bbox (``bboxes``, from
@@ -328,6 +340,13 @@ def _live_block_indices(bboxes, cut_bb, out_shape, blot_margin: float,
     ``blot_margin``), on a grid of 8 px cells. Returns ``(idx, valid)``
     of shape (E, L), L shared across frames and rounded up to 64; pads
     repeat the first live block and are not valid.
+
+    ``bands=(n_bands, band_rows)``: the spatial (row-band) live sets. A
+    block is live FOR BAND b when a needed cell lies in its padded bbox
+    within the band's rows, so the union over the bands keeps exactly the
+    deposits the one live set keeps, each made by the band that owns its
+    rows. Returns ``(idx, valid)`` of shape (n_bands, E, L), L shared
+    across bands and frames.
     """
     Ho, Wo = out_shape
     cell = 8
@@ -357,20 +376,38 @@ def _live_block_indices(bboxes, cut_bb, out_shape, blot_margin: float,
     # blocks entirely outside the output grid never deposit
     on_grid = ((y1 + pad >= 0) & (y0 - pad < Ho)
                & (x1 + pad >= 0) & (x0 - pad < Wo))
-    cnt = (integ[cy1 + 1, cx1 + 1] - integ[cy0, cx1 + 1]
-           - integ[cy1 + 1, cx0] + integ[cy0, cx0])
-    live = (cnt > 0) & on_grid
-    E = live.shape[0]
-    L = max(int(live.sum(1).max()), 1)
-    L = min(-(-L // 64) * 64, live.shape[1])  # bucket: shape reuse
-    idx = np.zeros((E, L), np.int64)
-    valid = np.zeros((E, L), bool)
-    for e in range(E):
-        ids = np.flatnonzero(live[e])[:L]
-        idx[e, :len(ids)] = ids
-        idx[e, len(ids):] = ids[0] if len(ids) else 0
-        valid[e, :len(ids)] = True
-    return idx, valid
+
+    def count(r0, r1):
+        """Needed cells in each block's padded bbox, its cell rows clipped
+        to [r0, r1] (an empty range counts none)."""
+        a0 = np.maximum(cy0, r0)
+        a1 = np.minimum(cy1, r1)
+        c = (integ[a1 + 1, cx1 + 1] - integ[a0, cx1 + 1]
+             - integ[a1 + 1, cx0] + integ[a0, cx0])
+        return np.where(a0 <= a1, c, 0)
+
+    def pack(live):
+        E = live.shape[0]
+        L = max(int(live.sum(1).max()), 1)
+        L = min(-(-L // 64) * 64, live.shape[1])  # bucket: shape reuse
+        idx = np.zeros((E, L), np.int64)
+        valid = np.zeros((E, L), bool)
+        for e in range(E):
+            ids = np.flatnonzero(live[e])[:L]
+            idx[e, :len(ids)] = ids
+            idx[e, len(ids):] = ids[0] if len(ids) else 0
+            valid[e, :len(ids)] = True
+        return idx, valid
+
+    if bands is None:
+        return pack((count(0, gh - 1) > 0) & on_grid)
+    n_bands, Hl = bands
+    live = np.stack([(count(b * Hl // cell,
+                            min(((b + 1) * Hl - 1) // cell, gh - 1)) > 0)
+                     & on_grid for b in range(n_bands)])  # (Nb, E, nb)
+    Nb, E, nb = live.shape
+    idx, valid = pack(live.reshape(Nb * E, nb))
+    return idx.reshape(Nb, E, -1), valid.reshape(Nb, E, -1)
 
 
 def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
@@ -430,7 +467,9 @@ class _Block:
     rows a frame); under ``mesh=`` this rank's contiguous block of each,
     padded to a multiple of the mesh size (padded frames: data, weight
     and pixmaps 0, frame id E - 1; padded rows: weight 0, invalid, frame
-    id 0)."""
+    id 0). Under a spatial mesh every rank holds every row (the
+    measurement is replicated) and every frame, or on a 2-D mesh its
+    block of the frames."""
 
     dep_data: torch.Tensor   # (El, Hd, Wd) deposit inputs, as _LoopArgs
     dep_wht: torch.Tensor
@@ -456,22 +495,28 @@ class _Block:
     #                           the global row a slot overrides
 
 
-def _block(a: _LoopArgs, mesh, cfg: AlignConfig, dri_ratios) -> _Block:
+def _block(a: _LoopArgs, mesh, cfg: AlignConfig, dri_ratios,
+           spatial=None) -> _Block:
     """``a`` flattened to (frame, source) rows: all of it without a mesh,
     else this rank's block of the frames and of the rows, each padded to
-    a multiple of the mesh size."""
-    from .parallel import pad_to_multiple, stage_global
-
+    a multiple of the mesh size. Under a 2-D spatial mesh the frames are
+    split over its frames axis and the rows are not."""
     E, N = a.cut_px.shape[:2]
     D, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
-    El = -(-E // D)
+    Df, rf = D, rank
+    if spatial is not None and len(spatial.axis_names) == 2:
+        fax = spatial.axis_names[0]
+        Df, rf = spatial.shape[fax], spatial.index(fax)
+    El = -(-E // Df)
     dev = a.cut_px.device
-    fid = np.minimum(np.arange(El * D), E - 1)[rank * El:(rank + 1) * El]
+    fid = np.minimum(np.arange(El * Df), E - 1)[rf * El:(rf + 1) * El]
 
-    def shard(t, fill=0):
-        if mesh is None:
+    def shard(t, fill=0, D=D, rank=rank):
+        if D == 1:
             return t
-        return stage_global(pad_to_multiple(t, D, fill=fill)[0], mesh)
+        t = pad_to_multiple(t, D, fill=fill)[0]
+        k = t.shape[0] // D
+        return t[rank * k:(rank + 1) * k]
 
     def flat(t):  # (E, n, ...) -> (E·n, ...)
         return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
@@ -489,7 +534,8 @@ def _block(a: _LoopArgs, mesh, cfg: AlignConfig, dri_ratios) -> _Block:
             (eidx * N + bidx[None], 0), (eidx.expand(E, NBp), 0),
             (bval[None].expand(E, NBp), False)))
     return _Block(
-        *(shard(t) for t in (a.exp_data, a.exp_wht, a.dri_px, a.dri_py)),
+        *(shard(t, D=Df, rank=rf)
+          for t in (a.exp_data, a.exp_wht, a.dri_px, a.dri_py)),
         dep_fid=torch.as_tensor(fid, device=dev),
         dep_ratios=tuple(dri_ratios[f] for f in fid),
         px=shard(flat(a.cut_px)), py=shard(flat(a.cut_py)),
@@ -503,7 +549,7 @@ def _block(a: _LoopArgs, mesh, cfg: AlignConfig, dri_ratios) -> _Block:
 
 def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
           Ms: torch.Tensor, ts: torch.Tensor, mesh=None,
-          track_corr: bool = False):
+          track_corr: bool = False, spatial=None):
     """One iteration: re-drizzle, blot, measure, fit, compose.
 
     Under ``wcsupdate='otf'`` with more than one exposure the reference is
@@ -524,6 +570,16 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
     is used: gloo (ranks sharing one card) takes CUDA tensors for it, not
     for ``all_gather``.
 
+    Under a spatial mesh (``spatial``: a ``Drizzle(spatial_mesh=...)``'s
+    mesh) the reference is this rank's row band: its frames (every frame,
+    or on a 2-D mesh its block of them, the band then summed over the
+    frames axis) are re-drizzled into the band by one kernel B1 launch,
+    and every row is blotted through ``parallel.sample_spatial`` (kernel
+    B2 on the halo-extended band, the partials summed over the bands), so
+    every rank measures and fits the whole batch alike; ``max_shift`` and
+    ``max_corr`` are taken as their largest over the ranks, so that every
+    rank ends the loop at the same iteration.
+
     Returns ``(newM, newt, info)``; ``info`` holds the per-exposure fit
     (G_M, G_t, rms, rmse, mae, nmatches), ``max_shift`` (the eps_shift
     metric), the kernels' ``escaped`` counts and, with ``track_corr``
@@ -532,8 +588,16 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
     staleness signal."""
     dev = Ms.device
     E = Ms.shape[0]
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.group()
     psum = _reducer(group)
+    # the group whose ranks must agree on a largest value
+    group_max = group if spatial is None or spatial.size == 1 \
+        else spatial.group()
+    sampler = None
+    if spatial is not None:
+        sampler = functools.partial(sample_spatial, spatial,
+                                    logical_rows=out_shape[0],
+                                    return_escaped=True)
     Bl = b.px.shape[0]
     off, Bg = (0, Bl) if mesh is None else (mesh.rank * Bl, mesh.size * Bl)
     meas_kw = dict(interp=cfg.interp, cc_type=cfg.cc_type, usfac=cfg.usfac,
@@ -550,10 +614,19 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
         measured against it: (rows, uv, weights, escapes (E,))."""
         px, py = _affine_apply_grid(M_[b.dep_fid], t_[b.dep_fid], b.dep_px,
                                     b.dep_py)
-        sci, wht, esc_d = drizzle_deposit_stack(
-            b.dep_data, b.dep_wht, px, py, out_shape, pixfrac=cfg.pixfrac,
-            pscale_ratio=b.dep_ratios, kernel=cfg.kernel)
-        drz = drizzle_combine(psum(sci), psum(wht))
+        if spatial is None:
+            sci, wht, esc_d = drizzle_deposit_stack(
+                b.dep_data, b.dep_wht, px, py, out_shape,
+                pixfrac=cfg.pixfrac, pscale_ratio=b.dep_ratios,
+                kernel=cfg.kernel)
+            drz = drizzle_combine(psum(sci), psum(wht))
+        else:  # this rank's band
+            sci, wht = _deposit_band(spatial, b.dep_data, b.dep_wht, px, py,
+                                     out_shape, cfg.pixfrac, b.dep_ratios,
+                                     cfg.kernel, sum_frames=True)
+            drz = drizzle_combine(sci, wht)
+            esc_d = torch.zeros(b.dep_data.shape[0], dtype=torch.int32,
+                                device=dev)
         rows = brows = slice(None)
         if e is not None and b.per_frame is not None:
             n, nb = b.per_frame
@@ -562,7 +635,8 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
         Mi, ti = M_[fid], t_[fid]
         seg = b.seg[rows] if cfg.combine_seg_mask else None
         d, besc = blot_measure(drz, Mi, ti, b.px[rows], b.py[rows],
-                               b.img[rows], b.msk[rows], seg, **meas_kw)
+                               b.img[rows], b.msk[rows], seg,
+                               sampler=sampler, **meas_kw)
         dxy = torch.stack([d.dx, d.dy], dim=-1)
         good = (d.fit_ok & (d.peak > 0)).to(torch.float32)
         esc = per_frame(esc_d, b.dep_fid) + per_frame(besc, fid)
@@ -577,7 +651,8 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
                 v[brows] for v in b.big)
             dB, escB = blot_measure(
                 drz, M_[bfid], t_[bfid], bpx, bpy, bimg, bmsk,
-                bseg if cfg.combine_seg_mask else None, **meas_kw)
+                bseg if cfg.combine_seg_mask else None, sampler=sampler,
+                **meas_kw)
             goodB = (dB.fit_ok & (dB.peak > 0)).to(torch.float32)
             ohB = ((btgt[:, None] == torch.arange(Bg, device=dev)[None])
                    & bval[:, None]).to(torch.float32)         # (KB, Bg)
@@ -650,8 +725,11 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
                             (oh * (wgt * move2)[:, None]).sum(0)]))
     rms_move = torch.sqrt(red[1] / torch.clamp(red[0], min=1e-12))
 
+    max_shift = rms_move.max()[None]
+    if group_max is not group:
+        dist.all_reduce(max_shift, op=dist.ReduceOp.MAX, group=group_max)
     info = dict(G_M=G_M, G_t=G_t, rms=fit.rms, rmse=fit.rmse, mae=fit.mae,
-                nmatches=fit.nmatches, max_shift=rms_move.max(),
+                nmatches=fit.nmatches, max_shift=max_shift[0],
                 escaped=escaped)
     if track_corr:
         # ---- total correction magnitude: an upper bound on how far
@@ -662,11 +740,10 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
                             torch.zeros_like(dpts[:, 0]))
         maxdim = max(cut_shape) if big_shape is None else max(*cut_shape,
                                                               *big_shape)
-        dmax = dnorm.max()[None]
-        if group is not None:
-            dist.all_reduce(dmax, op=dist.ReduceOp.MAX, group=group)
-        info["max_corr"] = (dmax[0]
-                            + dM.abs().sum(dim=(1, 2)).max() * (maxdim * 0.5))
+        dmax = torch.stack([dnorm.max(), dM.abs().sum(dim=(1, 2)).max()])
+        if group_max is not None:
+            dist.all_reduce(dmax, op=dist.ReduceOp.MAX, group=group_max)
+        info["max_corr"] = dmax[0] + dmax[1] * (maxdim * 0.5)
     return newM, newt, info
 
 
@@ -690,13 +767,13 @@ def _broadcast_catalogs(cats, seg_planes, mesh):
     disagreed on it would wait on each other forever."""
     obj = [(cats, [None if isinstance(sp, torch.Tensor) else sp
                    for sp in seg_planes])]
-    dist.broadcast_object_list(obj, src=0, group=mesh.group)
+    dist.broadcast_object_list(obj, src=0, group=mesh.group())
     cats, host = obj[0]
     out = []
     for sp, hp in zip(seg_planes, host):
         if isinstance(sp, torch.Tensor):
             sp = sp.contiguous()
-            dist.broadcast(sp, src=0, group=mesh.group)
+            dist.broadcast(sp, src=0, group=mesh.group())
         out.append(sp if isinstance(sp, torch.Tensor) else hp)
     return cats, out
 
@@ -747,6 +824,19 @@ def align_images(
     on ``mesh.device``, whose type ``device`` must name. Both
     ``wcsupdate`` modes, the oversized bucket and the sparse deposit run
     under a mesh.
+
+    A ``resample`` built with ``spatial_mesh=`` (a 1-D rows mesh, or a
+    2-D ``parallel.make_mesh2d`` mesh) runs the loop with the reference
+    plane row-band-sharded over it: every rank of that mesh calls
+    ``align_images`` with the same arguments (and its own Drizzle),
+    re-drizzles its frames (every frame, or on a 2-D mesh its block of
+    them) into its band, and blots every cutout from the bands; the
+    measurement and the fits are replicated, so every rank returns the
+    same result, whose ``drizzle`` keeps the spatial mesh. The default
+    catalog is the band-local finder on CUDA (``device_catalog='auto'``)
+    and anywhere under ``'device'``; on the CPU ``'auto'`` runs the host
+    finder on the gathered plane. ``mesh=`` with a spatial Drizzle raises
+    ``ValueError``.
     """
     if config is None:
         config = AlignConfig(
@@ -777,6 +867,9 @@ def align_images(
     elif _canon(resample.device) != _canon(dev):
         raise ValueError(f"resample lives on {resample.device}, but "
                          f"device={dev}")
+    # a spatial Drizzle: the reference plane is row-band-sharded over this
+    # mesh, one band a rank (parallel/spatial.py)
+    spatial = getattr(resample, "spatial_mesh", None)
     if cfg.match_sky or cfg.static_mask or cfg.reject_cr:
         # the stages rebind data and weights: the caller's Exposure
         # objects stay untouched
@@ -814,11 +907,15 @@ def align_images(
     out_shape = resample.output_shape
     # the default catalog on the device finder ('auto': on CUDA, as the
     # JAX package takes it on any accelerator): the drizzled reference
-    # never crosses to the host
+    # never crosses to the host. Under a spatial mesh that finder is the
+    # band-local one (catalogs_spatial), and the host finder reads the
+    # gathered plane
     use_dev_catalog = catalogs is None and (
         cfg.device_catalog == "device"
         or (cfg.device_catalog == "auto" and dev.type == "cuda"))
-    if use_dev_catalog:
+    use_spatial_catalog = use_dev_catalog and spatial is not None
+    use_dev_catalog = use_dev_catalog and spatial is None
+    if use_dev_catalog or use_spatial_catalog:
         drz_sci = None
         drz_sci_dev = drizzle_combine(resample._sci_acc, resample._wht_acc,
                                       fill=resample.fillval)
@@ -826,7 +923,12 @@ def align_images(
         drz_sci = resample.output_sci
     t = _mark("output_sci", t)
 
-    if catalogs is None:
+    if use_spatial_catalog:
+        cat_list = [SpatialSourceCatalog(
+            spatial, drz_sci_dev, out_shape[0], nsigma=cfg.catalog_nsigma,
+            npixels=cfg.catalog_npixels, max_sources=cfg.catalog_max_sources,
+            window=cfg.catalog_window)]
+    elif catalogs is None:
         cat_list = [DeviceSourceCatalog(
             drz_sci_dev, nsigma=cfg.catalog_nsigma,
             npixels=cfg.catalog_npixels, max_sources=cfg.catalog_max_sources,
@@ -858,7 +960,8 @@ def align_images(
     for ci, (cat, seg_i) in enumerate(zip(cats, seg_planes)):
         # the device catalog's cutouts come from its table alone: setup
         # reads only their shapes, ids, positions and fluxes
-        p_i = _prim_meta_from_catalog(cat, out_shape) if use_dev_catalog \
+        p_i = _prim_meta_from_catalog(cat, out_shape) \
+            if use_dev_catalog or use_spatial_catalog \
             else create_primary_cutouts(
                 cat, seg_i if seg_i is not None
                 else np.zeros(out_shape, np.int32),
@@ -1061,8 +1164,10 @@ def align_images(
             [e.wcs for e in exps], ref_wcs, exps[0].data.shape, device=dev)
         t = _mark("frame_pixmaps", t)
     # (C, H, W) per-catalog segmentation planes as float32 on the device
-    # (ids below 2**24 are exact); a device plane stays where it is
-    seg_f_t = torch.stack([
+    # (ids below 2**24 are exact); a device plane stays where it is. The
+    # band-local catalog's plane is this rank's band: its masks are
+    # sampled from the bands (nearest) by sample_spatial
+    seg_f_t = None if use_spatial_catalog else torch.stack([
         torch.zeros(out_shape, dtype=torch.float32, device=dev) if sp is None
         else torch.as_tensor(sp if isinstance(sp, torch.Tensor)
                              else np.ascontiguousarray(sp)).to(
@@ -1071,9 +1176,31 @@ def align_images(
     src_ids_t = to_dev(src_ids)
     src_cat_t = to_dev(src_cat, torch.int32)
     seg_ok_t = to_dev(seg_ok, torch.bool)
-    img_cut, img_msk, seg_cut = _stage_inputs(
-        exp_data_t, to_dev(centers), seg_f_t, cut_px_t, cut_py_t,
-        src_ids_t, src_cat_t, seg_ok_t, cut_shape, have_seg)
+
+    def stage(centers_, cpx, cpy, ids_, cat_, ok_, hw):
+        """Image cutouts, masks and segmentation masks of a cutout set."""
+        if seg_f_t is not None:
+            return _stage_inputs(exp_data_t, to_dev(centers_), seg_f_t, cpx,
+                                 cpy, ids_, cat_, ok_, hw, have_seg)
+        img_, msk_, seg_ = _stage_inputs(exp_data_t, to_dev(centers_), None,
+                                         cpx, cpy, ids_, cat_, ok_, hw, False)
+        if have_seg:
+            E_, N_ = cpx.shape[:2]
+            sseg, _ = sample_spatial(
+                spatial, seg_planes[0].to(torch.float32),
+                cpx.reshape((E_ * N_,) + tuple(hw)),
+                cpy.reshape((E_ * N_,) + tuple(hw)), interp="nearest",
+                logical_rows=out_shape[0])
+            sseg = sseg.reshape(cpx.shape)
+            seg_ = torch.maximum(
+                ((sseg - ids_[None, :, None, None]).abs() < 0.5).to(
+                    torch.float32),
+                (~ok_)[None, :, None, None].to(torch.float32))
+        return img_, msk_, seg_
+
+    img_cut, img_msk, seg_cut = stage(centers, cut_px_t, cut_py_t,
+                                      src_ids_t, src_cat_t, seg_ok_t,
+                                      cut_shape)
     t = _mark("device_stage", t)
 
     big = None
@@ -1099,10 +1226,10 @@ def align_images(
         # package builds them whatever cutout_pixmaps says (the Jacobians
         # are shape-independent: the base set's serve)
         cpxB_t, cpyB_t = device_cutout_maps(blcB, big_hw)
-        bimg, bmsk, bseg = _stage_inputs(
-            exp_data_t, to_dev(centersB), seg_f_t, cpxB_t, cpyB_t,
-            to_dev(src_idsB), to_dev(src_catB, torch.int32),
-            to_dev(seg_okB, torch.bool), big_hw, have_seg)
+        bimg, bmsk, bseg = stage(
+            centersB, cpxB_t, cpyB_t, to_dev(src_idsB),
+            to_dev(src_catB, torch.int32), to_dev(seg_okB, torch.bool),
+            big_hw)
         # widen the bucket sources' ref-frame bboxes to the big windows
         for e in range(E):
             corner_bboxes(e, blcB[e, :NB, 0], blcB[e, :NB, 1], hB, wB,
@@ -1138,21 +1265,33 @@ def align_images(
     live_margins = dict(blot_margin=float(margin + 4),
                         corr_margin=float(reach + margin + 1))
     sparse = None
+    # under a spatial mesh each band keeps the blocks whose deposits reach
+    # a needed cell in its own rows, and this rank compacts its band's
+    bands = None if spatial is None else (
+        spatial.shape[spatial.axis_names[-1]],
+        band_rows(spatial, out_shape[0]))
+
+    def compact(idx_, valid_):
+        if bands is not None:
+            b_ = spatial.index(spatial.axis_names[-1])
+            idx_, valid_ = idx_[b_], valid_[b_]
+        return _compact_blocks(exp_data_t, exp_wht_t, dri_px_t, dri_py_t,
+                               to_dev(idx_, torch.int64),
+                               to_dev(valid_, torch.bool))
+
     if cfg.sparse_deposit is True or (cfg.sparse_deposit == "auto"
                                       and dev.type == "cuda"):
         bb = _block_bboxes_wcs([e.wcs for e in exps], ref_wcs,
                                exps[0].data.shape)
         idx, valid_b = _live_block_indices(bb, cut_bb, out_shape,
-                                           **live_margins)
+                                           bands=bands, **live_margins)
         nb_total = int(bb[0].shape[1])
         # fraction of the input blocks the live set keeps; the deposit
         # walks only those (``sparse_live_frac``) when that pays
         setup_breakdown["sparse_live_set"] = round(
             idx.shape[-1] / nb_total, 4)
         if idx.shape[-1] < 0.85 * nb_total:  # compaction must pay
-            dep = _compact_blocks(exp_data_t, exp_wht_t, dri_px_t, dri_py_t,
-                                  to_dev(idx, torch.int64),
-                                  to_dev(valid_b, torch.bool))
+            dep = compact(idx, valid_b)
             args = dataclasses.replace(args, exp_data=dep[0],
                                        exp_wht=dep[1], dri_px=dep[2],
                                        dri_py=dep[3])
@@ -1165,7 +1304,7 @@ def align_images(
             setup_breakdown["sparse_live_frac"] = round(
                 idx.shape[-1] / nb_total, 4)
         t = _mark("sparse_blocks", t)
-    blk = _block(args, mesh, cfg, dri_ratios)
+    blk = _block(args, mesh, cfg, dri_ratios, spatial)
     if mesh is not None:
         t = _mark("mesh_stage", t)
     if dev.type == "cuda":
@@ -1201,15 +1340,14 @@ def align_images(
             heal_bb = (np.minimum(y0c, ny.min(0)), np.maximum(y1c, ny.max(0)),
                        np.minimum(x0c, nx.min(0)), np.maximum(x1c, nx.max(0)))
             idx2, valid2 = _live_block_indices(sparse["bb"], heal_bb,
-                                               out_shape, **live_margins)
-            dep = _compact_blocks(exp_data_t, exp_wht_t, dri_px_t, dri_py_t,
-                                  to_dev(idx2, torch.int64),
-                                  to_dev(valid2, torch.bool))
+                                               out_shape, bands=bands,
+                                               **live_margins)
+            dep = compact(idx2, valid2)
             args = dataclasses.replace(args, exp_data=dep[0],
                                        exp_wht=dep[1], dri_px=dep[2],
                                        dri_py=dep[3])
             # (under a mesh, re-padded and re-split by frame)
-            blk = _block(args, mesh, cfg, dri_ratios)
+            blk = _block(args, mesh, cfg, dri_ratios, spatial)
             sparse["margin"] = float(max_corr + margin)
             setup_breakdown["sparse_live_frac"] = round(
                 idx2.shape[-1] / sparse["nb_total"], 4)
@@ -1246,7 +1384,8 @@ def align_images(
         """One iteration from state (Ms, ts): on this device, or over the
         mesh's ranks."""
         return _step(cfg, out_shape, cut_shape, big_hw, blk, Ms, ts,
-                     mesh=mesh, track_corr=sparse is not None)
+                     mesh=mesh, track_corr=sparse is not None,
+                     spatial=spatial)
 
     # 'auto' runs the device loop unless verbose, which needs the host loop
     dev_loop = (not verbose) if cfg.device_loop == "auto" \
@@ -1336,9 +1475,12 @@ def align_images(
                     weight=exp.weight, exptime=exp.exptime, name=exp.name,
                     data_units=exp.data_units, err=exp.err, ivm=exp.ivm)
                 for e, exp in enumerate(exps)]
+    # a spatial align's product stays row-band-sharded: gathering it
+    # would put the whole mosaic on one device, what the mode avoids
     final = Drizzle(out_exps, output_wcs=ref_wcs, output_shape=out_shape,
                     pixfrac=cfg.pixfrac, kernel=cfg.kernel,
-                    wht_type=resample.wht_type, device=dev)
+                    wht_type=resample.wht_type, device=dev,
+                    spatial_mesh=spatial)
     return AlignResult(
         exposures=out_exps, matrices=Ms_np, shifts=ts_np, history=hist,
         converged=converged, n_iterations=n_iter, drizzle=final,

@@ -552,7 +552,7 @@ def _affine_apply_grid(M, t, gx, gy):
 def blot_measure(image: torch.Tensor, M: torch.Tensor, t: torch.Tensor,
                  px: torch.Tensor, py: torch.Tensor, img: torch.Tensor,
                  mask: torch.Tensor, seg: torch.Tensor | None = None,
-                 interp: str = "poly5",
+                 interp: str = "poly5", sampler=None,
                  **measure_kw) -> tuple[Displacement, torch.Tensor]:
     """Blot ``image`` at cutout pixmaps moved by per-cutout affines and
     measure each blotted cutout against its image cutout.
@@ -566,9 +566,14 @@ def blot_measure(image: torch.Tensor, M: torch.Tensor, t: torch.Tensor,
     windowed ``usfac > 1`` measurement through kernel B3 on CUDA
     (``measure_kw``: its options). Returns the displacements and the (B,)
     int32 blot escapes.
+
+    ``sampler(image, x, y, interp=...) -> (values, valid, escapes)`` takes
+    the place of kernel B2's wrapper: under a spatial mesh ``image`` is a
+    row band and the sampler ``parallel.sample_spatial``.
     """
     bx, by = _affine_apply_grid(M, t, px, py)
-    vals, ok, esc = sample_cutouts(image.contiguous(), bx, by, interp=interp)
+    vals, ok, esc = (sampler or sample_cutouts)(image.contiguous(), bx, by,
+                                                interp=interp)
     msk = mask & ok
     if seg is not None:
         img = img * seg

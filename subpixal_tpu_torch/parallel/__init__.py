@@ -1,14 +1,24 @@
 """Multi-device alignment on ``torch.distributed``.
 
-Counterpart of ``subpixal_tpu/parallel`` without its spatial part: one
-process per device, a process group where the JAX package has a device
-mesh, and ``all_reduce`` where it has ``lax.psum``. The cutout batch is
-split over the ranks, and the global sigma-clipped fits sum their
-moments over the group. ``align_images(mesh=make_mesh(...))`` runs the
-whole align iteration so. The spatial mosaics (``band_rows``,
-``shard_rows``, ``gather_rows``, ``halo_exchange``, ``make_mesh2d``, the
-``drizzle_deposit_*spatial`` deposits and ``sample_spatial``) are not
-ported yet (ROADMAP A16).
+Counterpart of ``subpixal_tpu/parallel``: one process per device, a
+process group where the JAX package has a device mesh, and
+``all_reduce`` where it has ``lax.psum``. Two ways to shard:
+
+* the frames and the cutout batch (:mod:`.sharding`):
+  ``align_images(mesh=make_mesh(...))`` splits the re-drizzle's frames
+  and the (frame, source) cutout batch over the ranks, and the global
+  sigma-clipped fits sum their moments over the group;
+* the mosaic's rows (:mod:`.spatial`): ``Drizzle(spatial_mesh=...)``
+  keeps one row band of the reference plane a rank (``band_rows``,
+  ``shard_rows``, ``gather_rows``, ``halo_exchange``), deposits into it
+  (``drizzle_deposit_spatial``, ``drizzle_deposit_stack_spatial`` over a
+  2-D ``make_mesh2d`` mesh, ``drizzle_deposit_sparse_spatial``) and blots
+  from it (``sample_spatial``); ``align_images`` drives such a Drizzle
+  with the measurement replicated on every rank.
+
+:class:`~subpixal_tpu_torch.parallel.sharding.Mesh` (what ``make_mesh``
+and ``make_mesh2d`` return) stands for ``jax.sharding.Mesh``, which the
+JAX package does not export from here either.
 """
 
 from .distributed import (
@@ -26,14 +36,33 @@ from .sharding import (
     sharded_find_displacement,
     sharded_measure_and_fit,
 )
+from .spatial import (
+    band_rows,
+    drizzle_deposit_sparse_spatial,
+    drizzle_deposit_spatial,
+    drizzle_deposit_stack_spatial,
+    gather_rows,
+    halo_exchange,
+    make_mesh2d,
+    sample_spatial,
+    shard_rows,
+)
 
 __all__ = [
-    "Mesh",
     "make_mesh",
     "make_sharded_align_step",
     "pad_to_multiple",
     "sharded_find_displacement",
     "sharded_measure_and_fit",
+    "band_rows",
+    "shard_rows",
+    "gather_rows",
+    "halo_exchange",
+    "make_mesh2d",
+    "drizzle_deposit_spatial",
+    "drizzle_deposit_sparse_spatial",
+    "drizzle_deposit_stack_spatial",
+    "sample_spatial",
     "init_distributed",
     "make_global_mesh",
     "global_batch_from_local",

@@ -101,11 +101,11 @@ def global_batch_from_local(local_batch, mesh, axis_name: str = AXIS):
     t = torch.as_tensor(local_batch)
     if mesh.size == 1:
         return t.to(mesh.device)
-    on = (torch.device("cpu") if dist.get_backend(mesh.group) == "gloo"
+    on = (torch.device("cpu") if dist.get_backend(mesh.group()) == "gloo"
           else mesh.device)
     t = t.to(on).contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t, group=mesh.group)
+    dist.all_gather(parts, t, group=mesh.group())
     return torch.cat(parts).to(mesh.device)
 
 

@@ -42,30 +42,56 @@ __all__ = [
 
 
 class Mesh:
-    """A 1-D mesh: the ranks of a ``torch.distributed`` process group, one
-    device each. ``rank`` and ``device`` are this process's. ``devices``
-    (one entry per rank) and ``shape`` (axis name -> size) are the views
-    of a ``jax.sharding.Mesh`` that the JAX code reads."""
+    """A mesh of ``torch.distributed`` ranks, one device each: 1-D (one
+    axis over the whole group) or 2-D (``make_mesh2d``: ``("frames",
+    "rows")``, ranks row-major over the axes, as the JAX package reshapes
+    its devices). ``rank`` and ``device`` are this process's. ``devices``
+    (one entry per rank), ``axis_names`` and ``shape`` (axis name ->
+    size) are the views of a ``jax.sharding.Mesh`` that the JAX code
+    reads; :meth:`index` is this rank's coordinate along an axis and
+    :meth:`group` the process group of the ranks that share its other
+    coordinates (the whole group without an axis)."""
 
     def __init__(self, group, rank: int, size: int, device,
-                 axis_names=(AXIS,)):
-        self.group = group
+                 axis_names=(AXIS,), dims=None, groups=None):
+        self._group = group
         self.rank = int(rank)
         self.size = int(size)
         self.device = torch.device(device)
         self.axis_names = tuple(axis_names)
+        self._dims = tuple(int(d) for d in (dims or (self.size,)))
+        if len(self._dims) != len(self.axis_names) \
+                or int(np.prod(self._dims)) != self.size:
+            raise ValueError(f"mesh axes {self.axis_names} of sizes "
+                             f"{self._dims} for {self.size} ranks")
+        # axis -> the group of this rank's line along it
+        self._groups = dict(groups or {self.axis_names[0]: group})
 
     @property
     def devices(self) -> np.ndarray:
-        return np.arange(self.size)
+        return np.arange(self.size).reshape(self._dims)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: self.size}
+        return dict(zip(self.axis_names, self._dims))
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        k = self.axis_names.index(axis)
+        return int(np.unravel_index(self.rank, self._dims)[k])
+
+    def group(self, axis: str | None = None):
+        """The process group of the ranks that share this rank's
+        coordinates on every axis but ``axis`` (the whole group when
+        ``axis`` is None or the mesh is 1-D)."""
+        if axis is None or len(self.axis_names) == 1:
+            return self._group
+        return self._groups[axis]
 
     def __repr__(self):
-        return (f"Mesh({self.axis_names[0]}={self.size}, rank={self.rank}, "
-                f"device={self.device})")
+        axes = ", ".join(f"{a}={n}" for a, n in zip(self.axis_names,
+                                                     self._dims))
+        return f"Mesh({axes}, rank={self.rank}, device={self.device})"
 
 
 def _default_device():
@@ -146,7 +172,7 @@ def _gather_blocks(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     full = torch.zeros((k * mesh.size,) + tuple(local.shape[1:]), dtype=dt,
                        device=local.device)
     full[mesh.rank * k:(mesh.rank + 1) * k] = local.to(dt)
-    dist.all_reduce(full, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(full, op=dist.ReduceOp.SUM, group=mesh.group())
     return full.to(local.dtype)
 
 
@@ -214,7 +240,7 @@ def sharded_measure_and_fit(
     dxy = torch.stack([d.dx, d.dy], dim=-1)
     uv = pos + torch.einsum("nik,nk->ni", J, dxy)
     w_eff = wgt * (d.fit_ok & (d.peak > 0)).to(torch.float32)
-    fit = iter_linear_fit_sharded(uv, pos, w_eff, group=mesh.group,
+    fit = iter_linear_fit_sharded(uv, pos, w_eff, group=mesh.group(),
                                   fitgeom=fitgeom, nclip=nclip, sigma=sigma)
     d = Displacement(*(_gather_blocks(v, mesh)[:B] for v in d))
     return d, LinearFitResult(*fit[:-1], _gather_blocks(fit.weights, mesh)[:B])
@@ -265,7 +291,7 @@ def make_sharded_align_step(
         w_eff = wl * (d.fit_ok & (d.peak > 0)).to(torch.float32)
         fit = iter_linear_fit_frames(uv, pos, fid, E, wxy=w_eff,
                                      fitgeom=fitgeom, nclip=nclip,
-                                     sigma=sigma, group=mesh.group)
+                                     sigma=sigma, group=mesh.group())
         newM = torch.einsum("eij,ejk->eik", fit.matrix, Ms)
         newt = torch.einsum("eij,ej->ei", fit.matrix, ts) + fit.shift
         return newM, newt, LinearFitResult(

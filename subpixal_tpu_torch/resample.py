@@ -16,6 +16,10 @@ A same-shape stack of more than one exposure, in the device-pixmap regime
 (Ho, Wo) planes; otherwise each exposure is deposited on its own, through
 host float64 pixmaps below that size and float32 device pixmaps from it.
 
+Under ``spatial_mesh=`` the accumulators and the per-exposure planes are
+this rank's row band of the output (:mod:`.parallel.spatial`): the same
+deposits through kernel B1 with the band's row offset.
+
 An exposure may hold ``torch.Tensor`` planes (the JAX package's
 device-resident ``jax.Array`` contract): they are kept on their device as
 float32 and never fetched; the stages then run their tensor branches.
@@ -38,6 +42,8 @@ from .blot import (compute_pixmap, compute_pixmap_device,
 from .kernels.drizzle import drizzle_deposit, drizzle_deposit_stack
 from .ops.drizzle import drizzle_combine
 from .ops.interp import sample_image
+from .parallel.spatial import (_agree, band_rows, drizzle_deposit_spatial,
+                               gather_rows, sample_spatial)
 from .wcs import TanWCS
 
 __all__ = ["Resample", "Drizzle", "Exposure", "make_output_wcs",
@@ -297,11 +303,6 @@ def make_output_wcs(wcs_list: Sequence[TanWCS],
     return out, (int(y1 - y0 + 1), int(x1 - x0 + 1))
 
 
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A, {item})")
-
-
 class Resample:
     """Interface: combine input exposures into one reference image.
 
@@ -335,6 +336,20 @@ class Drizzle(Resample):
     (:attr:`CONFIG_KEYS`). ``device`` ('cuda' by default) holds the
     accumulators; on a CUDA device every deposit runs kernel B1, on the
     CPU its plain version.
+
+    ``spatial_mesh`` (a 1-D rows mesh from ``parallel.make_mesh`` or a
+    2-D one from ``parallel.make_mesh2d``) row-band-shards the output:
+    every rank of the mesh builds the same Drizzle, and its accumulators
+    and per-exposure planes are its own band of the mosaic
+    (``parallel.band_rows`` rows, on ``spatial_mesh.device``), deposited
+    by kernel B1 with the band's row offset
+    (``parallel.drizzle_deposit_spatial``). ``execute``, fast add / drop /
+    replace, the stages and ``align_images`` work band by band;
+    ``output_sci``, ``output_wht`` and ``output_ctx`` gather the bands and
+    so are collectives: EVERY rank must read them, or every rank waits.
+    Ranks of a 2-D mesh's frames axis hold the same band: after each
+    deposit they take the planes of the rank at frames index 0, so they
+    agree to the bit.
     """
 
     #: AstroDrizzle config keys accepted via ``Drizzle(config=...)`` and
@@ -371,10 +386,15 @@ class Drizzle(Resample):
                  pixfrac: float = 1.0, kernel: str = "square",
                  fillval: float = 0.0, pscale: float | None = None,
                  pscale_ratio: float = 1.0, wht_type: str = "exptime",
-                 config: dict | None = None, device="cuda",
+                 config: dict | None = None, device=None,
                  spatial_mesh=None):
         if spatial_mesh is not None:
-            raise _not_in_slice("Drizzle(spatial_mesh=...)", "A16")
+            if device is not None and torch.device(device).type \
+                    != spatial_mesh.device.type:
+                raise ValueError(f"spatial_mesh runs on "
+                                 f"{spatial_mesh.device}, but "
+                                 f"device={device}")
+            device = spatial_mesh.device
         if config:
             args = dict(pixfrac=pixfrac, kernel=kernel, fillval=fillval,
                         pscale=pscale, pscale_ratio=pscale_ratio,
@@ -403,7 +423,8 @@ class Drizzle(Resample):
         self.pscale = pscale
         self.pscale_ratio = float(pscale_ratio)
         self.wht_type = wht_type
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        self.spatial_mesh = spatial_mesh
         self._owcs = output_wcs
         self._oshape = output_shape
         self._sci_acc = None
@@ -455,9 +476,24 @@ class Drizzle(Resample):
         self._per_exp.clear()
         self._sci_acc = self._wht_acc = None
 
+    def _acc_shape(self) -> tuple[int, int]:
+        """The accumulators' shape: the output grid, or this rank's band
+        of it under a spatial mesh."""
+        Ho, Wo = self._oshape
+        if self.spatial_mesh is None:
+            return Ho, Wo
+        return band_rows(self.spatial_mesh, Ho), Wo
+
     def _zeros(self):
-        return torch.zeros(self._oshape, dtype=torch.float32,
+        return torch.zeros(self._acc_shape(), dtype=torch.float32,
                            device=self.device)
+
+    def _gathered(self, band: torch.Tensor) -> np.ndarray:
+        """A band plane as the whole (Ho, Wo) host plane (a collective
+        under a spatial mesh)."""
+        if self.spatial_mesh is None:
+            return _host(band)
+        return gather_rows(band, self._oshape[0], mesh=self.spatial_mesh)
 
     # -- setup ----------------------------------------------------------- #
     def _ensure_output_grid(self):
@@ -492,12 +528,16 @@ class Drizzle(Resample):
         H, W = exp.data.shape
         px, py = self._frame_pixmap(exp.wcs, (H, W))
         scale, wht = _weight_parts(exp, self.wht_type)
-        s, w, _ = drizzle_deposit(
-            self._dev(exposure_rate_data(exp)),
-            None if wht is None else self._dev(wht),
-            self._dev(px), self._dev(py), self._oshape, pixfrac=self.pixfrac,
-            pscale_ratio=exp.wcs.pscale / self._owcs.pscale,
-            kernel=self.kernel)
+        args = (self._dev(exposure_rate_data(exp)),
+                None if wht is None else self._dev(wht), self._dev(px),
+                self._dev(py), self._oshape)
+        kw = dict(pixfrac=self.pixfrac,
+                  pscale_ratio=exp.wcs.pscale / self._owcs.pscale,
+                  kernel=self.kernel)
+        if self.spatial_mesh is None:
+            s, w, _ = drizzle_deposit(*args, **kw)
+        else:  # this rank's band
+            s, w = drizzle_deposit_spatial(self.spatial_mesh, *args, **kw)
         if scale != 1.0:
             s = s * np.float32(scale)
             w = w * np.float32(scale)
@@ -533,12 +573,17 @@ class Drizzle(Resample):
         _mark("pixmaps")
         ratios = tuple(round(float(e.wcs.pscale / self._owcs.pscale), 6)
                        for e in exps)
-        s, w, _ = drizzle_deposit_stack(
-            data, wht, px, py, self._oshape, pixfrac=self.pixfrac,
-            pscale_ratio=ratios, kernel=self.kernel, per_plane=True)
+        kw = dict(pixfrac=self.pixfrac, pscale_ratio=ratios,
+                  kernel=self.kernel, per_plane=True)
+        if self.spatial_mesh is None:
+            s, w, _ = drizzle_deposit_stack(data, wht, px, py, self._oshape,
+                                            **kw)
+        else:  # the planes of this rank's band
+            s, w = drizzle_deposit_spatial(self.spatial_mesh, data, wht, px,
+                                           py, self._oshape, **kw)
         sc = torch.as_tensor(np.asarray(scales, np.float32),
                              device=self.device)[:, None, None]
-        s, w = s * sc, w * sc
+        s, w = _agree(self.spatial_mesh, s * sc, w * sc)
         out = (s, w, s.sum(0), w.sum(0))
         _mark("deposit_stack")
         # the rate-data stack stays for the align loop's staging, keyed on
@@ -578,7 +623,7 @@ class Drizzle(Resample):
             return
         sci, wht = self._zeros(), self._zeros()
         for exp in self.exposures:
-            s, w = self._deposit(exp)
+            s, w = _agree(self.spatial_mesh, *self._deposit(exp))
             self._per_exp[exp.name] = (s, w)
             sci = sci + s
             wht = wht + w
@@ -597,7 +642,7 @@ class Drizzle(Resample):
                     "stack (the deposit cache is keyed by name); use "
                     "fast_replace_image or a unique name")
             self.exposures.append(exp)
-        s, w = self._deposit(exp)
+        s, w = _agree(self.spatial_mesh, *self._deposit(exp))
         self._per_exp[exp.name] = (s, w)
         self._sci_acc = self._sci_acc + s
         self._wht_acc = self._wht_acc + w
@@ -620,16 +665,20 @@ class Drizzle(Resample):
 
     @property
     def output_sci(self) -> np.ndarray:
+        """The combined science plane on the host (under a spatial mesh
+        the bands gathered, padding cropped: a collective)."""
         if self._sci_acc is None:
             self.execute()
-        return drizzle_combine(self._sci_acc, self._wht_acc,
-                               fill=self.fillval).cpu().numpy()
+        return self._gathered(drizzle_combine(self._sci_acc, self._wht_acc,
+                                              fill=self.fillval))
 
     @property
     def output_wht(self) -> np.ndarray:
+        """The summed weight plane on the host (a collective under a
+        spatial mesh, as ``output_sci``)."""
         if self._wht_acc is None:
             self.execute()
-        return self._wht_acc.cpu().numpy()
+        return self._gathered(self._wht_acc)
 
     @property
     def output_ctx(self) -> np.ndarray:
@@ -646,8 +695,8 @@ class Drizzle(Resample):
             dep = self._per_exp.get(exp.name)
             if dep is not None:
                 plane, bit = divmod(e, 32)
-                ctx[plane] |= ((_host(dep[1]) > 0).astype(np.uint32)
-                               << np.uint32(bit))
+                ctx[plane] |= ((self._gathered(dep[1]) > 0).astype(
+                    np.uint32) << np.uint32(bit))
         ctx = ctx.view(np.int32)
         return ctx[0] if nplanes == 1 else ctx
 
@@ -725,16 +774,18 @@ class Drizzle(Resample):
         with ``|data - blot| > snr·sigma + scale·deriv`` (deriv: the
         blotted image's local gradient) flagged; their weights are zeroed
         and the stack re-drizzled. With any tensor exposure the median
-        and the flagging run on the device. Returns the per-exposure
-        boolean CR masks (True = rejected). Needs >= 3 exposures.
+        and the flagging run on the device, and so they do under a
+        spatial mesh: the median of each rank's band, blotted back by
+        ``parallel.sample_spatial``. Returns the per-exposure boolean CR
+        masks (True = rejected). Needs >= 3 exposures.
         """
         if len(self.exposures) < 3:
             raise ValueError("CR rejection needs >= 3 exposures")
         if self._sci_acc is None:
             self.execute()
         Ho, Wo = self._oshape
-        device_mode = any(isinstance(e.data, torch.Tensor)
-                          for e in self.exposures)
+        device_mode = self.spatial_mesh is not None or any(
+            isinstance(e.data, torch.Tensor) for e in self.exposures)
         if device_mode:
             s_st = torch.stack([self._per_exp[e.name][0]
                                 for e in self.exposures])
@@ -762,8 +813,13 @@ class Drizzle(Resample):
         masks: list[np.ndarray] = []
         for exp in self.exposures:
             px, py = compute_pixmap(exp.wcs, self._owcs, exp.data.shape)
-            blot_t, ok_t = sample_image(med_t, self._dev(px), self._dev(py),
-                                        interp=interp)
+            if self.spatial_mesh is None:
+                blot_t, ok_t = sample_image(med_t, self._dev(px),
+                                            self._dev(py), interp=interp)
+            else:
+                blot_t, ok_t = sample_spatial(
+                    self.spatial_mesh, med_t, self._dev(px), self._dev(py),
+                    interp=interp, logical_rows=Ho)
             if device_mode:
                 weight = (None if exp.weight is None
                           else self._dev(exp.weight))

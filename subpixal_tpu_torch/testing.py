@@ -95,6 +95,15 @@ def pairwise_shift_errors(shifts, planted) -> float:
     return max(errs)
 
 
+#: appended to every rank program: the ranks leave the group together
+_LEAVE_GROUP = """
+import torch.distributed as _dist
+if _dist.is_initialized():
+    _dist.barrier()
+    _dist.destroy_process_group()
+"""
+
+
 class SpawnedRanks:
     """``world`` processes running one Python program, one rank each.
 
@@ -104,9 +113,13 @@ class SpawnedRanks:
     process on a port the system picks, as torchrun's agent serves it
     (``TORCHELASTIC_USE_AGENT_STORE``: every rank joins as a client), so
     runs started side by side never race for a port. Output goes to
-    temporary files, so no pipe fills up and blocks a rank. The processes
-    start at construction; :meth:`wait` collects them (a second call
-    repeats the first one's outcome).
+    temporary files, so no pipe fills up and blocks a rank. The program
+    ends with every rank leaving the process group together (a barrier,
+    then ``destroy_process_group``): a rank that exits while another
+    still tears its gloo group down can abort the other ("terminate
+    called without an active exception"). The processes start at
+    construction; :meth:`wait` collects them (a second call repeats the
+    first one's outcome).
     """
 
     def __init__(self, code: str, world: int, args=()):
@@ -120,6 +133,7 @@ class SpawnedRanks:
         self._outcome = None
         self._out = [(tempfile.TemporaryFile("w+"),
                       tempfile.TemporaryFile("w+")) for _ in range(world)]
+        code = code + _LEAVE_GROUP
         self.procs = [subprocess.Popen(
             [sys.executable, "-c", code, str(r), str(world), addr,
              *map(str, args)], stdout=o, stderr=e, text=True, env=env)

@@ -801,7 +801,7 @@ def test_mesh_one_nccl_rank_on_card_matches_one_device(card):
     one = align_images(exposures=exps, device="cuda", **_MESH_KW)
     mesh = make_mesh(1)
     try:
-        assert dist.get_backend(mesh.group) == "nccl"
+        assert dist.get_backend(mesh.group()) == "nccl"
         kernels.reset_launch_counts()
         res = align_images(exposures=exps, device="cuda", mesh=mesh,
                            **_MESH_KW)
@@ -883,3 +883,270 @@ def test_insert_cutouts_on_card_matches_cpu(card, mode):
         assert torch.equal(got.cpu(), want)
     else:
         assert _close(got.cpu(), want)
+
+
+# --------------------------------------------------------------------- #
+# the spatial mosaics: B1 and B2 on row bands, one or two gloo ranks
+# sharing the card
+# --------------------------------------------------------------------- #
+
+#: one rank of the band tests: argv[4] the inputs (npz), argv[5] where
+#: rank 0 writes the gathered results (npz)
+_SPATIAL_KERNELS = r"""
+import json, sys
+import numpy as np
+import torch
+from subpixal_tpu_torch import kernels
+from subpixal_tpu_torch.parallel import (
+    drizzle_deposit_sparse_spatial, drizzle_deposit_spatial, gather_rows,
+    init_distributed, make_mesh, sample_spatial, shard_rows)
+from subpixal_tpu_torch.resample import Drizzle, Exposure
+from subpixal_tpu_torch.wcs import TanWCS
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed(addr, world, rank, backend="gloo")
+mesh = make_mesh(world, axis_name="rows", device="cuda:0")
+z = {k: torch.tensor(v, device="cuda:0")
+     for k, v in np.load(sys.argv[4]).items()}
+Ho, Wo = (int(v) for v in z["oshape"])
+ratios = tuple(float(r) for r in z["ratios"])
+out, launches = {}, {}
+
+
+def count(name, fn):
+    kernels.reset_launch_counts()
+    r = fn()
+    torch.cuda.synchronize()
+    launches[name] = dict(kernels.LAUNCHES)
+    return r
+
+
+for name, fn in (
+        ("dense", lambda: drizzle_deposit_spatial(
+            mesh, z["data"][0], z["wht"][0], z["x"][0], z["y"][0],
+            (Ho, Wo), pixfrac=0.9, pscale_ratio=ratios[0])),
+        ("stacked", lambda: drizzle_deposit_spatial(
+            mesh, z["data"], z["wht"], z["x"], z["y"], (Ho, Wo),
+            pixfrac=0.9, pscale_ratio=ratios)),
+        ("compacted", lambda: drizzle_deposit_sparse_spatial(
+            mesh, *(z["c_" + k][None].expand((world,) + z["c_" + k].shape)
+                    for k in ("data", "wht", "x", "y")), (Ho, Wo),
+            pixfrac=0.9, pscale_ratio=ratios))):
+    s, w = count(name, fn)
+    out[name + "_sci"] = gather_rows(s, Ho, mesh=mesh)
+    out[name + "_wht"] = gather_rows(w, Ho, mesh=mesh)
+band = shard_rows(mesh, z["plane"])
+H = z["plane"].shape[0]
+for interp in ("nearest", "linear", "poly3", "poly5", "spline3", "sinc"):
+    v, ok = count(interp, lambda: sample_spatial(
+        mesh, band, z["qx"], z["qy"], interp=interp, fill=-7.0,
+        logical_rows=H))
+    out[interp + "_val"] = v.cpu().numpy()
+    out[interp + "_ok"] = ok.cpu().numpy()
+cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+exps = [Exposure(z["exp"][e].cpu().numpy(), TanWCS(
+    crpix=np.array([128.3 + 0.4 * e, 128.0 - 0.3 * e]),
+    crval=np.array([150.0, 2.0]), cd=cd), exptime=1.0 + e, name=f"s{e}")
+    for e in range(z["exp"].shape[0])]
+d = Drizzle(exps, spatial_mesh=mesh)
+count("execute", d.execute)
+out["execute_sci"] = d.output_sci
+out["execute_wht"] = d.output_wht
+if rank == 0:
+    np.savez(sys.argv[5], **out)
+print("RESULT " + json.dumps(launches), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def spatial_kernels(tmp_path_factory):
+    """The band tests' inputs, and the gathered results of one and two
+    gloo ranks sharing cuda:0 (run only where there is a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
+    import json
+
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    root = tmp_path_factory.mktemp("spatial_kernels")
+    ratios = (1.0, 0.7, 1.3)
+    t, (n, _) = _stack_scene("cpu", ratios, H=160, W=256, rot=2.0, seed=8)
+    # an output taller than wide: strips wholly outside a band and strips
+    # that straddle the bands' boundary
+    oshape = (n + 37, n)
+    rng = np.random.default_rng(8)
+    nb = (160 // 16) * (256 // 128)
+    idx = torch.tensor(np.stack([np.sort(rng.permutation(nb)[:8])
+                                 for _ in ratios]))
+    valid = torch.ones(idx.shape, dtype=torch.bool)
+    valid[:, -2:] = False
+    comp = _compact_blocks(t["data"], t["wht"], t["x"], t["y"], idx, valid)
+    H, W = 203, 150
+    plane = rng.uniform(0.0, 4.0, (H, W))
+    B, h, w = 24, 12, 12
+    gy, gx = np.mgrid[0:h, 0:w]
+    # origins inside, across the middle rows (the bands' boundary) and
+    # past every edge
+    oy = np.concatenate([rng.uniform(-8, H - 4, B - 6),
+                         H // 2 - 6 + rng.uniform(-2, 2, 6)])
+    ox = rng.uniform(-8, W - 4, B)
+    inputs = dict(
+        {k: v.numpy() for k, v in t.items()},
+        **{"c_" + k: v.numpy() for k, v in zip(("data", "wht", "x", "y"),
+                                              comp)},
+        oshape=np.asarray(oshape), ratios=np.asarray(ratios), plane=plane,
+        qx=gx[None] + ox[:, None, None] + 0.37,
+        qy=gy[None] + oy[:, None, None] + 0.61,
+        exp=rng.uniform(0.0, 2.0, (3, 256, 256)))
+    inputs = {k: np.asarray(v, np.float32 if np.asarray(v).dtype.kind == "f"
+                            else None) for k, v in inputs.items()}
+    path = str(root / "inputs.npz")
+    np.savez(path, **inputs)
+    runs = {}
+    for world in (1, 2):
+        res = str(root / f"out{world}.npz")
+        outs = SpawnedRanks(_SPATIAL_KERNELS, world,
+                            args=(path, res)).wait(timeout=300)
+        launches = [json.loads(next(ln for ln in o.splitlines()
+                                    if ln.startswith("RESULT "))[7:])
+                    for o in outs]
+        runs[world] = (dict(np.load(res)), launches)
+    return {k: torch.tensor(v) for k, v in inputs.items()}, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("kind", ["dense", "stacked", "compacted"])
+def test_band_deposits_union_is_whole_plane_b1(card, spatial_kernels, world,
+                                               kind):
+    """B1 on each rank's band (one launch a rank), the bands gathered:
+    the whole plane's B1 deposit, including strips wholly outside a band
+    and strips across the bands' boundary."""
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    ratios = tuple(float(r) for r in z["ratios"])
+    src = {"dense": ("data", "wht", "x", "y"),
+           "stacked": ("data", "wht", "x", "y"),
+           "compacted": ("c_data", "c_wht", "c_x", "c_y")}[kind]
+    d, wt, x, y = (z[k].to(card) for k in src)
+    if kind == "dense":
+        d, wt, x, y, ratios = d[:1], wt[:1], x[:1], y[:1], ratios[:1]
+    oshape = tuple(int(v) for v in z["oshape"])
+    s, w, _ = drizzle_deposit_stack(d, wt, x, y, oshape, pixfrac=0.9,
+                                    pscale_ratio=ratios)
+    assert float(w.sum()) > 0
+    assert _close(torch.tensor(out[kind + "_sci"]), s.cpu())
+    assert _close(torch.tensor(out[kind + "_wht"]), w.cpu())
+    assert all(la[kind] == {"drizzle_deposit": 1, "blot_gather": 0,
+                            "measure_displacement": 0} for la in launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("interp", sorted(INTERP_TAPS))
+def test_sample_spatial_b2_matches_whole_plane(card, spatial_kernels, world,
+                                               interp):
+    """sample_spatial through B2 on each rank's halo-extended band (one
+    launch a rank; nearest takes the plain partials), against B2 on the
+    whole plane, on cutout grids across the bands' boundary and every
+    edge: equal validity, values within REL_TOL."""
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    want, ok, _ = sample_cutouts(z["plane"].to(card), z["qx"].to(card),
+                                 z["qy"].to(card), interp=interp, fill=-7.0)
+    assert torch.equal(torch.tensor(out[interp + "_ok"]), ok.cpu())
+    assert _close(torch.tensor(out[interp + "_val"]), want.cpu())
+    n = 0 if interp == "nearest" else 1
+    assert all(la[interp]["blot_gather"] == n for la in launches)
+
+
+@pytest.mark.cuda
+def test_sample_spatial_refuses_sinc_sinscl_on_card(card):
+    """Kernel B2's sinc takes sinscl=1 only: on the card sample_spatial
+    refuses another sinc scale, as blot_image does, rather than return
+    the sinscl=1 values (the CPU's plain partials honour it)."""
+    from subpixal_tpu_torch.parallel.sharding import Mesh
+    from subpixal_tpu_torch.parallel.spatial import sample_spatial
+
+    mesh = Mesh(None, 0, 1, card, ("rows",))
+    band = torch.rand((32, 32), device=card)
+    q = torch.full((4,), 10.5, device=card)
+    with pytest.raises(ValueError, match="sinscl"):
+        sample_spatial(mesh, band, q, q, interp="sinc", sinscl=2.0)
+    v, ok = sample_spatial(mesh, band, q, q, interp="sinc")
+    assert bool(ok.all()) and bool(torch.isfinite(v).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_spatial_drizzle_execute_matches_drizzle(card, spatial_kernels,
+                                                 world):
+    """Drizzle(spatial_mesh=...).execute (one per-plane B1 launch into
+    each band) against Drizzle.execute on the whole plane."""
+    from subpixal_tpu_torch.resample import Drizzle
+
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+    exps = [Exposure(z["exp"][e].numpy(), TanWCS(
+        crpix=np.array([128.3 + 0.4 * e, 128.0 - 0.3 * e]),
+        crval=np.array([150.0, 2.0]), cd=cd), exptime=1.0 + e,
+        name=f"s{e}") for e in range(3)]
+    d = Drizzle(exps, device=card)
+    d.execute()
+    assert _close(torch.tensor(out["execute_sci"]),
+                  torch.tensor(d.output_sci))
+    assert _close(torch.tensor(out["execute_wht"]),
+                  torch.tensor(d.output_wht))
+    assert all(la["execute"]["drizzle_deposit"] == 1 for la in launches)
+
+
+_SPATIAL_ALIGN = r"""
+import json, sys
+import torch
+from subpixal_tpu_torch import align_images, kernels
+from subpixal_tpu_torch.parallel import init_distributed, make_mesh2d
+from subpixal_tpu_torch.resample import Drizzle
+from subpixal_tpu_torch.testing import simulate_stack
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed(addr, world, rank, backend="gloo")
+mesh = make_mesh2d(*json.loads(sys.argv[4]), device="cuda:0")
+exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+kernels.reset_launch_counts()
+res = align_images(resample=Drizzle(exps, spatial_mesh=mesh), device="cuda",
+                   **json.loads(sys.argv[5]))
+print("RESULT " + json.dumps(dict(
+    shifts=res.shifts.tolist(), n_iterations=res.n_iterations,
+    launches=dict(kernels.LAUNCHES))), flush=True)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(1, 2), (2, 1)])
+def test_spatial_align_on_2d_mesh(card, dims):
+    """align_images through a spatial Drizzle on a (1, 2) mesh (two row
+    bands) and a (2, 1) mesh (the frames split, one band), two gloo ranks
+    on cuda:0: each rank's B1 once at setup and once an iteration, B2 and
+    B3 once an iteration; the ranks agree, and within 2e-3 px (the JAX
+    package's spatial bar, tests/test_spatial.py) of the run without a
+    spatial mesh."""
+    import json
+
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    one = align_images(exposures=exps, device="cuda", **_MESH_KW)
+    outs = SpawnedRanks(_SPATIAL_ALIGN, 2, args=(
+        json.dumps(dims), json.dumps(_MESH_KW))).wait(timeout=300)
+    recs = [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("RESULT "))[7:]) for o in outs]
+    assert recs[0]["shifts"] == recs[1]["shifts"]
+    for r in recs:
+        n = r["n_iterations"]
+        assert n == one.n_iterations
+        assert r["launches"] == {"drizzle_deposit": 1 + n, "blot_gather": n,
+                                 "measure_displacement": n}
+        assert np.abs(np.asarray(r["shifts"]) - one.shifts).max() < 2e-3
+    assert pairwise_shift_errors(recs[0]["shifts"], planted) < 0.005

@@ -65,7 +65,7 @@ xy = global_batch_from_local(z["xy"][lo:hi], mesh)
 uv = global_batch_from_local(z["uv"][lo:hi], mesh)
 w = global_batch_from_local(z["w"][lo:hi], mesh)
 xy_l, uv_l, w_l = (stage_global(a, mesh) for a in (xy, uv, w))
-fit = iter_linear_fit_sharded(xy_l, uv_l, w_l, group=mesh.group)
+fit = iter_linear_fit_sharded(xy_l, uv_l, w_l, group=mesh.group())
 print("RESULT " + json.dumps(dict(
     info=list(process_info()), size=mesh.size, rank=mesh.rank,
     device=str(mesh.device), gathered=bool(np.array_equal(xy.numpy(),
@@ -91,7 +91,7 @@ except ValueError:
     pass
 mesh = make_mesh(1, device="cpu")
 t = torch.arange(3.0)
-dist.all_reduce(t, group=mesh.group)
+dist.all_reduce(t, group=mesh.group())
 print("RESULT " + json.dumps(dict(
     backend=dist.get_backend(), size=mesh.size, shape=mesh.shape,
     devices=int(mesh.devices.size), again=init_distributed(),

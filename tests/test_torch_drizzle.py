@@ -113,8 +113,3 @@ def test_drizzle_execute_output_sci_matches_jax(kernel):
                                rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(td.output_wht, np.asarray(jd.output_wht),
                                rtol=1e-5, atol=1e-3)
-
-
-def test_drizzle_left_out_branches_raise():
-    with pytest.raises(NotImplementedError, match="A16"):
-        Drizzle([], spatial_mesh=object(), device="cpu")

@@ -196,9 +196,9 @@ for g in ("shift", "rscale", "general"):
                       for k in ("xy", "uv", "fid", "w"))
     for key, fit in (
             ("frames_" + g, iter_linear_fit_frames(
-                xy, uv, fid, 3, wxy=w, fitgeom=g, group=mesh.group)),
+                xy, uv, fid, 3, wxy=w, fitgeom=g, group=mesh.group())),
             ("sharded_" + g, iter_linear_fit_sharded(
-                xy, uv, w, group=mesh.group, fitgeom=g))):
+                xy, uv, w, group=mesh.group(), fitgeom=g))):
         out[key] = tolist(fit[:6])
         local[key] = fit.weights.tolist()
 d = sharded_find_displacement(z["ref"], z["img"], mesh=mesh, cc_type="NCC",

@@ -307,3 +307,21 @@ def test_package_exports_cover_jax():
     assert subpixal_tpu_torch.__version__ == subpixal_tpu.__version__
     for name in subpixal_tpu_torch.__all__:
         assert hasattr(subpixal_tpu_torch, name), name
+
+
+def test_parallel_exports_equal_jax():
+    """The ``parallel`` package exports the JAX package's names, the
+    spatial mosaics' nine among them, and nothing else."""
+    import subpixal_tpu.parallel as jpar
+    import subpixal_tpu_torch.parallel as tpar
+
+    assert tpar.__all__ == jpar.__all__
+    for name in tpar.__all__:
+        assert callable(getattr(tpar, name)), name
+
+
+def test_catalogs_spatial_exports_equal_jax():
+    import subpixal_tpu.catalogs.spatial as jsp
+    import subpixal_tpu_torch.catalogs_spatial as tsp
+
+    assert tsp.__all__ == jsp.__all__
