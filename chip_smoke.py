@@ -36,11 +36,15 @@ failure):
    also held to the summed launch); and that stack compacted to
    (8, L·16, 128) block columns, as the sparse deposit stages it;
 4. B2: the blot gather kernel against its plain version for all six
-   interpolants on 512 cutouts of 32² (the shape the main path picks for
-   its scene), 512 of 48² (the 48² path's) and 16 of 256² (the oversized
-   bucket's cap); the linear interpolant at 32² also beside
+   interpolants, and the sinc at ``sinscl`` 2 and 0.5 (where some
+   queries take the bilinear guard), on 512 cutouts of 32² (the shape
+   the main path picks for its scene), 512 of 48² (the 48² path's) and
+   16 of 256² (the oversized bucket's cap); every interpolant and the
+   sinc at ``sinscl`` 2 timed at 32², the linear interpolant also beside
    ``grid_sample``, the one PyTorch call that computes it at interior
-   points;
+   points; then ``blot_image`` (a whole 1024² frame) and ``blot_cutout``
+   with the sinc at ``sinscl`` 0.5, 1.5 and 2, one B2 launch each, held
+   to the plain version and to the CPU run;
 5. B3: the measurement kernels against their plain version (the
    ``torch.fft`` chain), each route asserted: the FFT kernel on 512
    masked NCC pairs of 32² at ``usfac`` 8 (the new path's shape) and on
@@ -48,6 +52,12 @@ failure):
    mixed-radix kernel asked for on the same pairs; the mixed-radix kernel
    on 512 masked pairs of 48² (the 48² path's), of 128²
    (``max_cut_size``) and on 16 of 256² (the oversized bucket's cap);
+   then B3's shape limit: its host plan against the shape rule
+   ``find_displacement`` routes by (``ops.correlate.window_fits``) on
+   square and non-square sides up to 512 (large prime factors among
+   them) at ``usfac`` 8 to 100, and the package's ``find_displacement``
+   on both sides of the limit, held to the plain one (the refused
+   shapes take the full surface, with no B3 launch);
 6. the catalog phase: the device source finder on the main path's
    reference (the 8 x 1024², 60-star stack drizzled on the card), held
    to its own run on the CPU (rows, areas, bboxes and segmentation planes
@@ -131,6 +141,12 @@ failure):
     16's checks (no reference run) and the band-local sparse deposit
     engaged: ``sparse_live_frac`` in the setup breakdown and B1 given the
     compacted (E, L·16, 128) blocks in the loop.
+
+Every align phase prints the measurement route each batch took
+(``route_name``: torch.fft at ``usfac`` 1, B3's kernel, or the full
+surface), and phases 16-17 also hold each rank's ``sample_spatial`` sinc
+at ``sinscl`` 0.5, 1.5 and 2 (one B2 launch a rank) to the plain version
+on the whole plane.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -443,12 +459,19 @@ def _b2_inputs(dev, B, n, seed, rot=0.2, shape=(1024, 1024)):
             for a in (image, x, y))
 
 
+#: operations for one tap's weight on one axis, a sine or a divide counted
+#: as one: the Lagrange basis in product form and the B-spline ~5, the
+#: windowed sinc ~10 (two sines, two divides, the scale, the window test)
+B2_WEIGHT_OPS = {"nearest": 0, "linear": 1, "poly3": 5, "poly5": 5,
+                 "spline3": 5, "sinc": 10}
+
+
 def _b2_bound(img, x, y, interp):
     """Bound of one gather: the image pixels the footprints need (the
     union of each cutout's footprint bounding box, clipped to the image),
     x and y read, values (f32) and validity (bytes) written; per output
-    taps² multiply-adds and two axes of Lagrange weights in product form
-    (~5 operations a tap). Returns (ms, by, image pixels counted)."""
+    taps² multiply-adds and two axes of tap weights (``B2_WEIGHT_OPS``).
+    Returns (ms, by, image pixels counted)."""
     from subpixal_tpu_torch.ops.interp import INTERP_OFFSETS
 
     offs = INTERP_OFFSETS[interp]
@@ -464,8 +487,28 @@ def _b2_bound(img, x, y, interp):
         cover[y0[b]:y1[b], x0[b]:x1[b]] = True
     npix, n, taps = int(cover.sum()), x.numel(), len(offs)
     ms, by = bound(4 * npix + 8 * n + 5 * n,
-                   n * (2 * taps * taps + 2 * 5 * taps))
+                   n * (2 * taps * taps + 2 * B2_WEIGHT_OPS[interp] * taps))
     return ms, by, npix
+
+
+def _sinc_guard_share(x, y, ok, sinscl):
+    """Share of the valid queries whose sinc taps sum to under 1e-3 on an
+    axis (where the kernel and the plain version take bilinear weights)."""
+    import torch
+
+    from subpixal_tpu_torch.ops.interp import INTERP_OFFSETS
+
+    def tap_sum(c):
+        t = (c - c.floor()).double()
+        total = torch.zeros_like(t)
+        for o in INTERP_OFFSETS["sinc"]:
+            d = t - o
+            total += torch.where(d.abs() >= 3.0, 0.0,
+                                 torch.sinc(d / sinscl) * torch.sinc(d / 3.0))
+        return total
+
+    guard = ((tap_sum(x).abs() < 1e-3) | (tap_sum(y).abs() < 1e-3)) & ok
+    return float(guard.sum()) / max(1, int(ok.sum()))
 
 
 def _grid_sample_linear(img, x, y):
@@ -481,44 +524,64 @@ def _grid_sample_linear(img, x, y):
                          align_corners=True)[0, 0]
 
 
+#: the sinc's scales B2 is held to its plain version at, beside 1
+B2_SINSCL = (2.0, 0.5)
+
+
 def phase_b2(dev):
-    """Gather kernel vs plain version: all six interpolants on 512
-    cutouts of 32² and of 48² and on the 16 x 256² bucket; times at poly5
-    (and linear at 32², beside grid_sample)."""
+    """Gather kernel vs plain version: all six interpolants, and the sinc
+    at ``B2_SINSCL``, on 512 cutouts of 32² and of 48² and on the 16 x
+    256² bucket; times of every interpolant and of the sinc at sinscl 2
+    at 512 x 32² (linear beside grid_sample), of poly5 at the others."""
     import torch
 
     from subpixal_tpu_torch.kernels.blot import sample_cutouts
-    from subpixal_tpu_torch.ops.interp import INTERP_TAPS, sample_image
+    from subpixal_tpu_torch.ops.interp import (INTERP_TAPS,
+                                               bspline3_prefilter,
+                                               sample_image)
 
     out = []
     for B, n, seed in ((512, 32, 2), (512, 48, 4), (16, 256, 6)):
         img_t, x_t, y_t = _b2_inputs(dev, B, n, seed)
         H, W = img_t.shape
         worst_abs = 0.0
-        for interp in INTERP_TAPS:
-            v, ok, esc = sample_cutouts(img_t, x_t, y_t, interp=interp)
-            pv, pok = sample_image(img_t, x_t, y_t, interp=interp)
+        cases = ([(i, 1.0) for i in INTERP_TAPS]
+                 + [("sinc", s) for s in B2_SINSCL])
+        for interp, s in cases:
+            name = interp if s == 1.0 else f"sinc, sinscl {s}"
+            v, ok, esc = sample_cutouts(img_t, x_t, y_t, interp=interp,
+                                        sinscl=s)
+            pv, pok = sample_image(img_t, x_t, y_t, interp=interp, sinscl=s)
             torch.cuda.synchronize()
             r, a = _rel_err(v, pv)
             same_valid = bool(torch.equal(ok, pok))
-            print(f"B2 {B} x {n}² {interp:8s}: rel err {r:.2e}, validity "
+            guard = (f", {_sinc_guard_share(x_t, y_t, pok, s):.3%} of valid "
+                     "queries on the bilinear guard" if s < 1.0 else "")
+            print(f"B2 {B} x {n}² {name:16s}: rel err {r:.2e}, validity "
                   f"equal {same_valid} ({float(ok.float().mean()):.3f} "
-                  f"valid), escaped {int(esc.sum())}")
+                  f"valid), escaped {int(esc.sum())}{guard}")
             if not (r <= REL_TOL and same_valid) or int(esc.sum()) != 0:
-                raise AssertionError(f"B2 {B} x {n}² {interp} disagrees "
+                raise AssertionError(f"B2 {B} x {n}² {name} disagrees "
                                      "with the plain version")
             worst_abs = max(worst_abs, a)
-        timed = ["poly5"] + (["linear"] if n == 32 else [])
-        for interp in timed:
+        timed = ([(i, 1.0) for i in INTERP_TAPS] + [("sinc", 2.0)]
+                 if n == 32 else [("poly5", 1.0)])
+        for interp, s in timed:
+            # spline3's prefilter is plain torch outside the kernel: time
+            # the gather on the coefficients, as both versions take them
+            pre = interp == "spline3"
+            src = bspline3_prefilter(img_t).contiguous() if pre else img_t
+            kw = dict(interp=interp, sinscl=s, prefiltered=pre)
+            name = interp if s == 1.0 else f"sinc, sinscl {s}"
+
             def call():
-                return sample_cutouts(img_t, x_t, y_t, interp=interp)
+                return sample_cutouts(src, x_t, y_t, **kw)
 
             ms = cuda_ms(call)
             dev_us = device_us(rotating(
-                lambda *a: sample_cutouts(*a, interp=interp), img_t, x_t,
-                y_t), "gather_kernel")
-            plain_ms = cuda_ms(lambda: sample_image(img_t, x_t, y_t,
-                                                    interp=interp))
+                lambda *a: sample_cutouts(*a, **kw), src, x_t, y_t),
+                "nearest_kernel" if interp == "nearest" else "gather_kernel")
+            plain_ms = cuda_ms(lambda: sample_image(src, x_t, y_t, **kw))
             library_ms = None
             if interp == "linear":
                 # grid_sample computes the same value where the footprint
@@ -533,16 +596,69 @@ def phase_b2(dev):
                 library_ms = cuda_ms(
                     lambda: _grid_sample_linear(img_t, x_t, y_t))
             bound_ms, by, npix = _b2_bound(img_t, x_t, y_t, interp)
-            print(f"B2 {B} x {n}², {interp}: wrapper {ms:.4f} ms, device "
+            print(f"B2 {B} x {n}², {name}: wrapper {ms:.4f} ms, device "
                   f"{dev_us:.3f} us per launch, plain {plain_ms:.4f} ms, "
                   f"library {library_ms}, bound {bound_ms:.4f} ms ({by}; "
                   f"{npix} of {H * W} image pixels needed; "
                   f"{bound_ms * 1e3 / dev_us:.1%} of it reached)")
-            out.append(dict(shape=f"{B} x {n}², {interp}",
+            out.append(dict(shape=f"{B} x {n}², {name}"
+                            + (" (prefiltered)" if pre else ""),
                             max_abs_err=worst_abs, ms=ms, device_us=dev_us,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=by, library_ms=library_ms))
     return out
+
+
+def phase_blot_sinc(dev):
+    """``blot_image`` through a whole-frame pixmap (a 0.3° rotation and a
+    fractional offset of a 1024² star frame, one row in three on fraction
+    0.5) and ``blot_cutout`` (a 64 x 64 cutout onto a grid offset by a
+    fraction of a pixel) with ``interp='sinc'`` at ``sinscl`` 0.5, 1.5 and
+    2: one B2 launch each, held to the plain version (``blot_image``) and
+    to the CPU run (``blot_cutout``)."""
+    import torch
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.blot import blot_cutout, blot_image
+    from subpixal_tpu_torch.cutout import Cutout
+    from subpixal_tpu_torch.ops.interp import sample_image
+    from subpixal_tpu_torch.wcs import TanWCS
+
+    img, _, _ = _b2_inputs(dev, 1, 8, 12)
+    th = np.deg2rad(0.3)
+    yy, xx = np.mgrid[0:1024, 0:1024].astype(np.float64)
+    px = np.cos(th) * xx - np.sin(th) * yy + 3.37
+    py = np.sin(th) * xx + np.cos(th) * yy - 2.61
+    px[::3] = np.floor(px[::3]) + 0.5
+    px, py = (torch.tensor(a, dtype=torch.float32, device=dev)
+              for a in (px, py))
+    cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+    w = TanWCS(crpix=np.array([512.0, 512.0]), crval=np.array([150.0, 2.0]),
+               cd=cd)
+    src = Cutout(img.cpu().numpy()[480:544, 480:544], w)
+    dst = Cutout(np.zeros((48, 40), np.float32),
+                 w.with_shifted_crpix(10.3, 7.6), blc=(7, 10))
+    for sinscl in (0.5, 1.5, 2.0):
+        kernels.reset_launch_counts()
+        v, ok = blot_image(img, px, py, interp="sinc", sinscl=sinscl)
+        got = blot_cutout(src, dst, interp="sinc", sinscl=sinscl,
+                          device=dev)
+        torch.cuda.synchronize()
+        n = kernels.LAUNCHES["blot_gather"]
+        pv, pok = sample_image(img, px, py, interp="sinc", sinscl=sinscl)
+        want = blot_cutout(src, dst, interp="sinc", sinscl=sinscl,
+                           device="cpu")
+        r_img = _rel_err(v, pv)[0]
+        r_cut = _rel_err(torch.tensor(got.data), torch.tensor(want.data))[0]
+        same = bool(torch.equal(ok, pok)) and bool(
+            np.array_equal(got.mask, want.mask))
+        print(f"blot_image / blot_cutout, sinc, sinscl {sinscl}: rel err "
+              f"{r_img:.2e} / {r_cut:.2e}, validity equal {same} "
+              f"({float(ok.float().mean()):.3f} / {float(got.mask.mean()):.3f}"
+              f" valid), B2 launches {n}")
+        if not (r_img <= REL_TOL and r_cut <= REL_TOL and same and n == 2):
+            raise AssertionError(f"blot_image / blot_cutout at sinc sinscl "
+                                 f"{sinscl} disagree or missed B2")
 
 
 def _b3_flops(B, H, W, nwin, ny, nx):
@@ -560,25 +676,27 @@ def _b3_flops(B, H, W, nwin, ny, nx):
 
 
 def _b3_inputs(dev, B, n, shift, sigma, masked, seed):
-    """Star cutout pairs (img shifted by up to ``shift`` px) with masks."""
+    """Star cutout pairs of n x n (or an (H, W) pair: n), img shifted by
+    up to ``shift`` px, with masks."""
     import torch
 
+    H, W = (n, n) if np.ndim(n) == 0 else n
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
     dx = rng.uniform(-shift, shift, B)[:, None, None]
     dy = rng.uniform(-shift, shift, B)[:, None, None]
 
     def star(ox, oy):
-        return np.exp(-((xx - n / 2 - ox) ** 2 + (yy - n / 2 - oy) ** 2)
+        return np.exp(-((xx - W / 2 - ox) ** 2 + (yy - H / 2 - oy) ** 2)
                       / (2 * sigma ** 2))
 
-    refs = star(0.0, 0.0)[None] + rng.normal(0, 1e-3, (B, n, n))
-    imgs = star(dx, dy) + rng.normal(0, 1e-3, (B, n, n))
+    refs = star(0.0, 0.0)[None] + rng.normal(0, 1e-3, (B, H, W))
+    imgs = star(dx, dy) + rng.normal(0, 1e-3, (B, H, W))
     t = [torch.tensor(a, dtype=torch.float32, device=dev)
          for a in (refs, imgs)]
     mask = None
     if masked:  # the align loop's masks: bool, shared by both sides
-        mask = torch.tensor(rng.random((B, n, n)) > 0.05, device=dev)
+        mask = torch.tensor(rng.random((B, H, W)) > 0.05, device=dev)
     return t[0], t[1], mask
 
 
@@ -650,6 +768,113 @@ def phase_b3(dev):
     return out
 
 
+#: cutout sides of B3's route sweep, up to 512: the FFT kernel's,
+#: multiples of 16, large prime factors (7·16, 2·127, 127, 509), odd
+SWEEP_SIDES = (16, 24, 32, 45, 48, 64, 96, 112, 127, 128, 200, 254, 256,
+               384, 509, 512)
+#: upsampling factors of the sweep (nwin 16, 16, 32, 56, 112 at the
+#: default fit box of 5)
+SWEEP_USFAC = (8, 10, 20, 50, 100)
+
+
+def route_name(shape, usfac=1, peak_fit_box=5, peak_search_box="fitbox",
+               **_):
+    """The route ``find_displacement`` takes for a (B, H, W) batch on the
+    card: torch.fft (``usfac`` 1), kernel B3 (which kernel, its CTAs a
+    pair, a global workspace), or the full surface (a box or a shape
+    ``window_fits`` refuses)."""
+    from subpixal_tpu_torch.kernels.measure import kernel_route
+    from subpixal_tpu_torch.ops.correlate import window_route
+
+    B, H, W = shape
+    if usfac <= 1:
+        return "torch.fft (usfac 1)"
+    bounds, nwin, windowed = window_route(H, W, usfac, peak_fit_box,
+                                          peak_search_box)
+    if not windowed:
+        return f"full surface (torch.fft; nwin {nwin})"
+    rt = kernel_route(B, H, W, nwin, bounds)
+    return (f"B3 {rt.kernel}, {rt.cluster} CTAs a pair"
+            + (", global workspace" if rt.workspace else "")
+            + f" (nwin {nwin})")
+
+
+def route_spy(routes):
+    """A patch of the align loop's ``find_displacement`` that appends
+    each batch's (shape, :func:`route_name`) to ``routes``."""
+    from subpixal_tpu_torch import blot as blot_mod
+
+    fd = blot_mod.find_displacement
+
+    def spy(ref, img, *a, **k):
+        routes.append((tuple(ref.shape), route_name(tuple(ref.shape), **k)))
+        return fd(ref, img, *a, **k)
+
+    return mock.patch.object(blot_mod, "find_displacement", spy)
+
+
+def phase_b3_routes(dev):
+    """B3's shape limit: the host plan (``measure_window_plan``) against
+    the port's shape rule (``ops.correlate.window_fits``) on every pair of
+    ``SWEEP_SIDES`` at every ``SWEEP_USFAC`` under the 'fitbox' (5 x 5)
+    and a 17 x 17 box, at 1 and 512 pairs; then the package's
+    ``find_displacement`` at shapes on both sides of the limit, held to
+    the plain one on the card, with its route and launches."""
+    import torch
+
+    from subpixal_tpu_torch import find_displacement, kernels
+    from subpixal_tpu_torch.kernels.measure import _PLAN, _lib
+    from subpixal_tpu_torch.ops.correlate import find_displacement as plain
+    from subpixal_tpu_torch.ops.correlate import window_fits
+
+    plan_fn = _lib().measure_window_plan
+    total, refused = 0, set()
+    for B, H, W, usfac, box in itertools.product(
+            (1, 512), SWEEP_SIDES, SWEEP_SIDES, SWEEP_USFAC, (5, 17)):
+        nwin = -(-(usfac + 6) // 8) * 8
+        nws = plan_fn(B, H, W, nwin, box, box, -1, _PLAN())
+        total += 1
+        if (nws >= 0) != window_fits(H, W, nwin, box, box):
+            raise AssertionError(f"B3's plan and window_fits disagree at "
+                                 f"B={B}, {H} x {W}, nwin {nwin}, box {box}")
+        if nws < 0:
+            refused.add((H, W, usfac, box))
+    by_usfac = {u: sum(1 for r in refused if r[2] == u) for u in SWEEP_USFAC}
+    least = min(refused, key=lambda r: r[0] * r[2])
+    print(f"B3 route sweep: {total} (B, H, W, usfac, box) combinations, "
+          f"the plan refuses {2 * len(refused)}, exactly those window_fits "
+          f"refuses; refused (H, W, box) per usfac {by_usfac}; smallest H "
+          f"refused: {min(r[0] for r in refused)} (at usfac "
+          f"{max(r[2] for r in refused if r[0] == least[0])}), smallest "
+          f"usfac refused: {min(r[2] for r in refused)}")
+    if any(r[2] <= 10 for r in refused):
+        raise AssertionError("B3 refuses a shape at usfac 8 or 10")
+    for B, H, W, usfac, masked in ((6, 112, 112, 8, True),
+                                   (3, 112, 254, 10, True),
+                                   (3, 509, 384, 8, False),
+                                   (2, 512, 512, 42, True),
+                                   (2, 512, 512, 50, True),
+                                   (2, 256, 256, 100, False)):
+        ref, img, m = _b3_inputs(dev, B, (H, W), 0.45, 2.0, masked, H + W)
+        kw = dict(usfac=usfac, fit_type="gaussian", ref_mask=m, img_mask=m)
+        route = route_name((B, H, W), usfac)
+        before = kernels.LAUNCHES["measure_displacement"]
+        d = find_displacement(ref, img, **kw)
+        torch.cuda.synchronize()
+        n = kernels.LAUNCHES["measure_displacement"] - before
+        dp = plain(ref, img, **kw)
+        diff = max(float((d.dx - dp.dx).abs().max()),
+                   float((d.dy - dp.dy).abs().max()))
+        print(f"B3 find_displacement {B} x {H} x {W}, usfac {usfac}, "
+              f"{'masked' if masked else 'unmasked'}: {route}, {n} B3 "
+              f"launches, max |d - plain| {diff:.3e} px, fit ok "
+              f"{bool(d.fit_ok.all())}")
+        fits = window_fits(H, W, -(-(usfac + 6) // 8) * 8, 5, 5)
+        if n != int(fits) or not diff < 1e-3 or not bool(d.fit_ok.all()):
+            raise AssertionError(f"B3 find_displacement {B} x {H} x {W} at "
+                                 f"usfac {usfac}: {n} launches, {diff} px")
+
+
 def _plain_deposit(*args, **kw):
     import torch
 
@@ -669,13 +894,14 @@ def _plain_deposit_stack(*args, **kw):
                              device=s.device)
 
 
-def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False):
+def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False,
+                  sinscl=1.0, row0=0):
     import torch
 
     from subpixal_tpu_torch.ops.interp import sample_image
 
     v, ok = sample_image(image, x, y, interp=interp, fill=fill,
-                         prefiltered=prefiltered)
+                         sinscl=sinscl, prefiltered=prefiltered, row0=row0)
     return v, ok, torch.zeros(x.shape[0], dtype=torch.int32,
                               device=x.device)
 
@@ -716,14 +942,13 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     iterations, on the card.
 
     ``expect`` names the kernels this path must launch; ``measured`` is
-    None or ((B, H, W), route): the batch B3 must measure each iteration
-    and the route it must take; ``finder`` the source finder setup must
+    None or ((B, H, W), kernel): the batch B3 must measure each iteration
+    and the kernel it must take; ``finder`` the source finder setup must
     run ('device': the device finder, counted by a spy; 'host': never the
     device finder). Returns the launch counts of the first call and its
     result."""
     import torch
 
-    from subpixal_tpu_torch import blot as blot_mod
     from subpixal_tpu_torch import catalogs_device, kernels
     from subpixal_tpu_torch.align import align_images
     from subpixal_tpu_torch.testing import (pairwise_shift_errors,
@@ -732,44 +957,35 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     exps, planted = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
                                    seed=11, sigma=sigma)
     kw = dict(exposures=exps, device=dev, eps_shift=1e-7, **config)
-    seen = []
     finds = []
-    kernel_measure = blot_mod.measure_window
     device_finder = catalogs_device.find_sources_device
-
-    def spy(ref, *a, **k):  # the batches the loop hands to B3
-        seen.append((tuple(ref.shape), k["nwin"], tuple(k["bounds"])))
-        return kernel_measure(ref, *a, **k)
 
     def finder_spy(image, *a, **k):  # the device finder's calls
         finds.append(image.device.type)
         return device_finder(image, *a, **k)
 
+    routes = []
     kernels.reset_launch_counts()
     t0 = time.time()
-    with mock.patch.object(blot_mod, "measure_window", spy), \
-            mock.patch.object(catalogs_device, "find_sources_device",
-                              finder_spy):
+    with mock.patch.object(catalogs_device, "find_sources_device",
+                           finder_spy), route_spy(routes):
         res = align_images(max_iterations=iters, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     print(f"{label}: launches {launches}, wall {wall:.2f} s, device "
           f"finder calls {finds}")
+    print(f"{label}: measurement routes {sorted(set(routes))}")
     if (finder == "device") != bool(finds) or \
             any(d != "cuda" for d in finds):
         raise AssertionError(f"{label}: setup ran the device finder on "
                              f"{finds}, expected the {finder} finder")
     if measured is not None:
-        from subpixal_tpu_torch.kernels.measure import kernel_route
-
-        shape, route = measured
-        routes = {kernel_route(*sh, nwin, bo) for sh, nwin, bo in seen}
-        print(f"{label}: B3 batches {sorted(set(seen))}, routes {routes}")
-        if {sh for sh, _, _ in seen} != {shape} or \
-                {r.kernel for r in routes} != {route}:
-            raise AssertionError(f"{label}: B3 measured {seen[:2]} by "
-                                 f"{routes}, expected {shape} by {route}")
+        shape, kernel = measured
+        if {sh for sh, _ in routes} != {shape} or any(
+                not r.startswith(f"B3 {kernel},") for _, r in routes):
+            raise AssertionError(f"{label}: measured {sorted(set(routes))}"
+                                 f", expected {shape} by B3's {kernel}")
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
@@ -883,9 +1099,13 @@ def spy(image, *a, **k):
     return finder(image, *a, **k)
 
 
+from chip_smoke import _plain_versions, route_spy
+
+routes = []
 kernels.reset_launch_counts()
 t0 = time.time()
-with mock.patch.object(catalogs_device, "find_sources_device", spy):
+with mock.patch.object(catalogs_device, "find_sources_device", spy), \
+        route_spy(routes):
     res = align_images(**kw)
 torch.cuda.synchronize()
 wall = time.time() - t0
@@ -893,7 +1113,6 @@ launches = dict(kernels.LAUNCHES)
 warm = align_images(**kw)
 # the first iteration forced through the kernels' plain versions on the
 # card: B1 on this rank's frames, B2 and B3 on its block of the cutout rows
-from chip_smoke import _plain_versions
 
 with _plain_versions():
     res_p = align_images(**dict(kw, max_iterations=1))
@@ -901,7 +1120,7 @@ plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
                  for a, b in zip(res.history[0], res_p.history[0]))
 print("RESULT " + json.dumps(dict(
     rank=rank, device=str(mesh.device), launches=launches, finds=finds,
-    wall=wall, plain_diff=plain_diff,
+    routes=sorted(set(routes)), wall=wall, plain_diff=plain_diff,
     shifts=np.asarray(res.shifts).tolist(), n_iterations=res.n_iterations,
     err_mpix=1e3 * pairwise_shift_errors(res.shifts, planted),
     nmatches=res.history[0][0].nmatches, setup_s=res.setup_s,
@@ -930,7 +1149,8 @@ def phase_mesh_ranks(ref, world=2, backend="gloo", device="cuda:0"):
     for r in recs:
         n = r["n_iterations"]
         print(f"{label}, rank {r['rank']} on {r['device']}: launches "
-              f"{r['launches']}, device finder calls {r['finds']}, "
+              f"{r['launches']}, measurement routes {r['routes']}, device "
+              f"finder calls {r['finds']}, "
               f"{n} iterations, fit error {r['err_mpix']:.3f} mpix, sources "
               f"{r['nmatches']}; first call setup_s {r['setup_s']:.3f}, "
               f"{r['iter_ms']:.3f} ms per iteration, wall {r['wall']:.2f} "
@@ -1010,13 +1230,15 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
         return align_images(resample=Drizzle(exps, spatial_mesh=mesh),
                             **dict(kw, **over))
 
+    routes = []
     torch.cuda.synchronize(mesh.device)
     torch.cuda.reset_peak_memory_stats(mesh.device)
     kernels.reset_launch_counts()
     t0 = time.time()
     with mock.patch.object(catalogs_spatial, "find_sources_spatial",
                            finder_spy), \
-            mock.patch.object(spatial_mod, "drizzle_deposit_stack", b1_spy):
+            mock.patch.object(spatial_mod, "drizzle_deposit_stack",
+                              b1_spy), route_spy(routes):
         res = run()
     torch.cuda.synchronize(mesh.device)
     wall = time.time() - t0
@@ -1028,6 +1250,7 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
     plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
                      for a, b in zip(res.history[0], res_p.history[0]))
     return dict(
+        sinc=spatial_sinc_check(mesh, shape), routes=sorted(set(routes)),
         device=str(mesh.device), mesh=repr(mesh), launches=launches,
         finds=finds, b1_shapes=b1_shapes, wall=wall, plain_diff=plain_diff,
         shifts=np.asarray(res.shifts).tolist(),
@@ -1038,6 +1261,44 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
         warm_iter_ms=1e3 * warm.history[-1][0].iter_s,
         setup_breakdown=res.setup_breakdown,
         warm_setup_breakdown=warm.setup_breakdown, peak_bytes=peak)
+
+
+def spatial_sinc_check(mesh, shape):
+    """``sample_spatial(interp='sinc')`` at sinscl 0.5, 1.5 and 2 on this
+    rank's band of a seeded plane of ``shape``, at 64 cutout grids of 32²
+    spread over the plane (across the bands' boundaries and the edges),
+    against the plain version on the whole plane on the card. Every rank
+    of the mesh calls it. Returns, per scale, the relative error, whether
+    validity is equal and the rank's B2 launches."""
+    import torch
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.ops.interp import sample_image
+    from subpixal_tpu_torch.parallel import sample_spatial, shard_rows
+
+    H, W = shape
+    rng = np.random.default_rng(29)
+    gy, gx = np.mgrid[0:32, 0:32].astype(np.float64)
+    cen = rng.uniform(-8, (W + 8, H + 8), (64, 2))
+    q = [torch.tensor(g[None] + c[:, None, None], dtype=torch.float32,
+                      device=mesh.device)
+         for g, c in ((gx, cen[:, 0] + 0.37), (gy, cen[:, 1] + 0.61))]
+    plane = torch.tensor(rng.uniform(0.0, 4.0, shape), dtype=torch.float32,
+                         device=mesh.device)
+    band = shard_rows(mesh, plane)
+    out = {}
+    for sinscl in (0.5, 1.5, 2.0):
+        kernels.reset_launch_counts()
+        v, ok = sample_spatial(mesh, band, *q, interp="sinc", sinscl=sinscl,
+                               fill=-7.0, logical_rows=H)
+        torch.cuda.synchronize(mesh.device)
+        n = kernels.LAUNCHES["blot_gather"]
+        pv, pok = sample_image(plane, *q, interp="sinc", sinscl=sinscl,
+                               fill=-7.0)
+        out[str(sinscl)] = dict(rel_err=_rel_err(v, pv)[0],
+                                valid_equal=bool(torch.equal(ok, pok)),
+                                valid=float(ok.float().mean()), launches=n)
+    return out
 
 
 def _check_spatial(label, recs, iters, ref=None, sparse=False):
@@ -1061,8 +1322,14 @@ def _check_spatial(label, recs, iters, ref=None, sparse=False):
             print(f"{label}, {r['mesh']}, {key}: " + json.dumps(
                 {k: round(v, 4) for k, v in r[key].items()}))
         print(f"{label}, {r['mesh']}: B1 inputs {r['b1_shapes'][:3]}; "
-              f"first-iteration shifts vs plain versions: max |diff| "
-              f"{r['plain_diff']:.3e} px")
+              f"measurement routes {r['routes']}; first-iteration shifts "
+              f"vs plain versions: max |diff| {r['plain_diff']:.3e} px")
+        print(f"{label}, {r['mesh']}: sample_spatial sinc vs plain on the "
+              f"whole plane: " + json.dumps(r["sinc"]))
+        if any(c["rel_err"] > REL_TOL or not c["valid_equal"]
+               or c["launches"] != 1 for c in r["sinc"].values()):
+            raise AssertionError(f"{label}: {r['mesh']}'s sample_spatial "
+                                 f"sinc disagrees: {r['sinc']}")
         if (n != iters or la["drizzle_deposit"] != 1 + n
                 or la["blot_gather"] != n or la["measure_displacement"] != n):
             raise AssertionError(f"{label}: {r['mesh']} launched {la} in "
@@ -1642,7 +1909,9 @@ def main() -> int:
 
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
+    phase_blot_sinc(dev)
     b3 = phase_b3(dev)
+    phase_b3_routes(dev)
     phase_catalog(dev)
     new = NEW_PATH
     runs = {

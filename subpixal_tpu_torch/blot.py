@@ -31,7 +31,6 @@ from .cutout import Cutout
 from .kernels.blot import sample_cutouts
 from .kernels.measure import measure_window
 from .ops.correlate import Displacement, find_displacement
-from .ops.interp import sample_image
 from .wcs import TanWCS, tangent_homography
 
 __all__ = ["compute_pixmap", "compute_pixmap_device",
@@ -466,7 +465,7 @@ def blot_image(ref_data, pixmap_x, pixmap_y, interp: str = "poly5",
     ``sinscl`` scales the sinc interpolant (parity with ``do_blot``'s
     expout/sinscl). Arrays go to ``device`` (default: ``ref_data``'s
     device when it is a tensor, else 'cuda'); on a CUDA device the gather
-    is kernel B2, whose sinc takes ``sinscl=1`` only. Returns
+    is kernel B2, at every interpolant and ``sinscl``. Returns
     ``(blotted, valid_mask)`` tensors of the pixmap's shape.
     """
     if device is None:
@@ -481,17 +480,10 @@ def blot_image(ref_data, pixmap_x, pixmap_y, interp: str = "poly5",
                                device=dev).contiguous()
 
     img, px, py = f32(ref_data), f32(pixmap_x), f32(pixmap_y)
-    if sinscl == 1.0 or interp != "sinc":
-        g = (1, -1, px.shape[-1]) if px.dim() else (1, 1, 1)
-        vals, valid, _ = sample_cutouts(img, px.reshape(g), py.reshape(g),
-                                        interp=interp, fill=fill)
-        vals, valid = vals.reshape(px.shape), valid.reshape(px.shape)
-    elif dev.type == "cpu":
-        vals, valid = sample_image(img, px, py, interp=interp, fill=fill,
-                                   sinscl=sinscl)
-    else:
-        raise ValueError("blot_image: kernel B2's sinc takes sinscl=1 only; "
-                         f"got sinscl={sinscl} on {dev}")
+    g = (1, -1, px.shape[-1]) if px.dim() else (1, 1, 1)
+    vals, valid, _ = sample_cutouts(img, px.reshape(g), py.reshape(g),
+                                    interp=interp, fill=fill, sinscl=sinscl)
+    vals, valid = vals.reshape(px.shape), valid.reshape(px.shape)
     if expout != 1.0:
         vals = vals * float(np.float32(expout))
     return vals, valid

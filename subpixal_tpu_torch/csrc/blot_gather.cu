@@ -24,8 +24,9 @@
 // the constant reciprocals c_i = 1 / prod_{j != i} (i - j), built at
 // compile time: a divide per factor cannot become a multiply under IEEE
 // rules, and dividing once per factor cost about two dozen divides per
-// output, a third of the gather's time. Lanczos takes one reciprocal of
-// its tap sum, the B-spline a multiply by 1/6.
+// output, a third of the gather's time. The windowed sinc takes one
+// reciprocal of its tap sum, the B-spline a multiply by 1/6. The sinc's
+// scale `sinscl` is a run-time argument, so one build serves every scale.
 //
 // What bounds it on this card: the L1 load rate of the footprints. Per
 // output pixel it reads 8 bytes of coordinates, writes 5, and gathers
@@ -78,18 +79,23 @@ struct LagrangeC {
   }
 };
 
-__device__ __forceinline__ float lanczos3(float x) {
-  // sinc(x) * sinc(x / 3) on |x| < 3 (the plain version's sinscl = 1)
-  const float pxs = 3.14159265358979323846f * x;
+// sinc(x / sinscl) * sinc(x / 3) on |x| < 3, the plain version's formula
+// with the divide by sinscl a multiply by its reciprocal (exact at
+// sinscl = 1, 0.5 and 2; within an ulp of the plain version's argument
+// elsewhere)
+__device__ __forceinline__ float lanczos3(float x, float inv_sinscl) {
+  const float xs = x * inv_sinscl;
+  const float pxs = 3.14159265358979323846f * xs;
   const float pw = 3.14159265358979323846f * x / 3.0f;
-  const bool small = fabsf(x) < 1e-7f;
-  const float sinc_main = small ? 1.0f : sinf(pxs) / pxs;
-  const float sinc_win = small ? 1.0f : sinf(pw) / pw;
+  const float sinc_main = fabsf(xs) < 1e-7f ? 1.0f : sinf(pxs) / pxs;
+  const float sinc_win = fabsf(x) < 1e-7f ? 1.0f : sinf(pw) / pw;
   return fabsf(x) >= 3.0f ? 0.0f : sinc_main * sinc_win;
 }
 
+// inv_sinscl: 1 / sinscl, read by the sinc only
 template <int I>
-__device__ __forceinline__ void axis_weights(float t, float (&w)[Taps<I>::N]) {
+__device__ __forceinline__ void axis_weights(float t, float inv_sinscl,
+                                             float (&w)[Taps<I>::N]) {
   constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
   if constexpr (I == I_LINEAR) {
     w[0] = 1.0f - t;
@@ -101,14 +107,17 @@ __device__ __forceinline__ void axis_weights(float t, float (&w)[Taps<I>::N]) {
     w[1] = (4.0f - 6.0f * t2 + 3.0f * t3) * k6;
     w[2] = (1.0f + 3.0f * t + 3.0f * t2 - 3.0f * t3) * k6;
     w[3] = t3 * k6;
-  } else if constexpr (I == I_SINC) {  // Lanczos-3, normalised over the taps
+  } else if constexpr (I == I_SINC) {  // windowed sinc, normalised over the taps
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      w[i] = lanczos3(t - (float)(LO + i));
+      w[i] = lanczos3(t - (float)(LO + i), inv_sinscl);
       s += w[i];
     }
-    if (fabsf(s) < 1e-3f) {  // degenerate sum: bilinear weights
+    // a tap sum near 0 (reachable at sinscl < 1: at sinscl = 0.5 every
+    // tap of t = 0.5 is a zero of the sinc) takes bilinear weights on
+    // taps 0 and +1, as the plain version does
+    if (fabsf(s) < 1e-3f) {
 #pragma unroll
       for (int i = 0; i < N; ++i) w[i] = 0.0f;
       w[-LO] = 1.0f - t;
@@ -138,48 +147,58 @@ __global__ void nearest_kernel(const float* __restrict__ img, int H, int W,
                                const float* __restrict__ xs,
                                const float* __restrict__ ys, long long n,
                                float* __restrict__ out,
-                               uint8_t* __restrict__ valid, float fill) {
+                               uint8_t* __restrict__ valid, float fill, int row0) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     // floor(x + 0.5): the reference's (int)(x + 0.5) rounding
     const float fx = floorf(__ldg(xs + i) + 0.5f);
-    const float fy = floorf(__ldg(ys + i) + 0.5f);
+    const float fy = floorf(__ldg(ys + i) + 0.5f) - (float)row0;
     const bool ok = fx >= 0.0f && fx < (float)W && fy >= 0.0f && fy < (float)H;
     out[i] = ok ? __ldg(img + (long long)fy * W + (long long)fx) : fill;
     valid[i] = ok;
   }
 }
 
-// Whether the K x K footprint at floors (x0, y0) lies in the image; the
-// float test also rejects NaN and keeps the int casts in range.
+// Whether the K x K footprint at floors (x0, y0) lies in the image, whose
+// rows are [ylo, yhi) of the points' frame; the float test also rejects
+// NaN and keeps the int casts in range.
 template <int I>
-__device__ __forceinline__ bool inside(float x0, float y0, int H, int W) {
+__device__ __forceinline__ bool inside(float x0, float y0, float ylo, float yhi, int W) {
   constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
   return x0 + (float)LO >= 0.0f && x0 + (float)(LO + N - 1) < (float)W &&
-         y0 + (float)LO >= 0.0f && y0 + (float)(LO + N - 1) < (float)H;
+         y0 + (float)LO >= ylo && y0 + (float)(LO + N - 1) < yhi;
 }
 
-template <int I>
+// BAND: the image is a band of rows [row0, row0 + H) of the points' frame.
+// floor(y) stays in that frame, so the fraction is y's own and the tests
+// are exact integer compares. A template parameter: with the row origin a
+// run-time value poly5 took 8.88-8.91 us at 512 x 32^2 against 8.35-8.39
+// for the kernel without it (chip_smoke.py, one call, NVIDIA H100 80GB
+// HBM3, 700 W).
+template <int I, bool BAND>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float* __restrict__ img, int H, int W, const float* __restrict__ xs,
               const float* __restrict__ ys, long long n, float* __restrict__ out,
-              uint8_t* __restrict__ valid, float fill) {
+              uint8_t* __restrict__ valid, float fill, float inv_sinscl, int row0) {
   constexpr int LO = Taps<I>::LO, N = Taps<I>::N;
+  const float ylo = BAND ? (float)row0 : 0.0f;
+  const float yhi = BAND ? (float)(row0 + H) : (float)H;
+  const long long r_lo = BAND ? (long long)LO - row0 : (long long)LO;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float x = __ldg(xs + i), y = __ldg(ys + i);
     const float x0 = floorf(x), y0 = floorf(y);
-    if (!inside<I>(x0, y0, H, W)) {
+    if (!inside<I>(x0, y0, ylo, yhi, W)) {
       out[i] = fill;
       valid[i] = 0;
       continue;
     }
     float wx[N], wy[N];
-    axis_weights<I>(x - x0, wx);
-    axis_weights<I>(y - y0, wy);
-    const float* p = img + ((long long)y0 + LO) * W + ((long long)x0 + LO);
+    axis_weights<I>(x - x0, inv_sinscl, wx);
+    axis_weights<I>(y - y0, inv_sinscl, wy);
+    const float* p = img + ((long long)y0 + r_lo) * W + ((long long)x0 + LO);
     float acc = 0.0f;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
@@ -193,38 +212,54 @@ gather_kernel(const float* __restrict__ img, int H, int W, const float* __restri
   }
 }
 
+template <int I>
+void launch_gather(unsigned g, cudaStream_t st, const float* img, int H, int W,
+                   const float* xs, const float* ys, long long n, float* out, uint8_t* valid,
+                   float fill, float inv_sinscl, int row0) {
+  if (row0 == 0)
+    gather_kernel<I, false><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill,
+                                                    inv_sinscl, 0);
+  else
+    gather_kernel<I, true><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill,
+                                                   inv_sinscl, row0);
+}
+
 }  // namespace
 
 // Sample `img` (H, W) at the n points (xs, ys) on `stream`; writes out[n]
-// and valid[n] (0/1 bytes). Returns cudaGetLastError(); an unknown
-// interpolant code returns cudaErrorInvalidValue without launching.
+// and valid[n] (0/1 bytes). `sinscl` scales the sinc interpolant's
+// argument (read by the sinc only); `row0` is the row of the points' frame
+// at which `img` starts (a band of a larger plane; 0 for a whole plane).
+// Returns cudaGetLastError(); an unknown interpolant code returns
+// cudaErrorInvalidValue without launching.
 extern "C" int blot_gather_launch(const float* img, int H, int W, const float* xs,
                                   const float* ys, long long n, float* out, uint8_t* valid,
-                                  int interp, float fill, void* stream) {
+                                  int interp, float fill, float sinscl, int row0,
+                                  void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132LL * 16) blocks = 132LL * 16;  // grid-stride beyond this
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned g = (unsigned)blocks;
+  const float inv = 1.0f / sinscl;
   switch (interp) {
     case I_NEAREST:
-      nearest_kernel<<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      nearest_kernel<<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill, row0);
       break;
     case I_LINEAR:
-      gather_kernel<I_LINEAR><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      launch_gather<I_LINEAR>(g, st, img, H, W, xs, ys, n, out, valid, fill, inv, row0);
       break;
     case I_POLY3:
-      gather_kernel<I_POLY3><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      launch_gather<I_POLY3>(g, st, img, H, W, xs, ys, n, out, valid, fill, inv, row0);
       break;
     case I_POLY5:
-      gather_kernel<I_POLY5><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      launch_gather<I_POLY5>(g, st, img, H, W, xs, ys, n, out, valid, fill, inv, row0);
       break;
     case I_SPLINE3:
-      gather_kernel<I_SPLINE3><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid,
-                                                       fill);
+      launch_gather<I_SPLINE3>(g, st, img, H, W, xs, ys, n, out, valid, fill, inv, row0);
       break;
     case I_SINC:
-      gather_kernel<I_SINC><<<g, kThreads, 0, st>>>(img, H, W, xs, ys, n, out, valid, fill);
+      launch_gather<I_SINC>(g, st, img, H, W, xs, ys, n, out, valid, fill, inv, row0);
       break;
     default:
       return (int)cudaErrorInvalidValue;

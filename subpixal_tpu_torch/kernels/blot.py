@@ -31,13 +31,14 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
                        ctypes.c_longlong, _VP, _VP, ctypes.c_int,
-                       ctypes.c_float, _VP]
+                       ctypes.c_float, ctypes.c_float, ctypes.c_int, _VP]
     return fn
 
 
 def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    interp: str = "poly5", fill: float = 0.0,
-                   prefiltered: bool = False):
+                   prefiltered: bool = False, sinscl: float = 1.0,
+                   row0: int = 0):
     """Sample ``image`` (H, W) at per-cutout coordinate grids (B, h, w).
 
     Returns ``(values, valid, escaped)``: values and validity with the
@@ -46,7 +47,14 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     escaped a static tile. The CUDA kernel has no tile, so ``escaped`` is
     zeros by construction (the JAX package's Pallas kernel counts the
     pixels its per-cutout tiles missed). ``spline3`` prefilters ``image``
-    in plain torch first unless ``prefiltered``.
+    in plain torch first unless ``prefiltered``. ``sinscl`` scales the
+    sinc's argument (``sinc(x / sinscl) · sinc(x / 3)``, as the plain
+    version); the kernel takes it at run time, so one build serves every
+    scale. ``row0`` is the row of ``y``'s frame at which ``image`` starts
+    (a band of a larger plane): it is taken from ``floor(y)`` in integers,
+    so the fraction stays the frame's own. The library is built under a
+    hash of its source, so a checkout whose kernel changed rebuilds it on
+    its first call.
 
     CPU tensors take the plain version. CUDA tensors (contiguous float32,
     on one device) launch the kernel on the current stream; anything else
@@ -63,7 +71,8 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     esc = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
     if dev.type == "cpu":
         vals, valid = sample_image(image, x, y, interp=interp, fill=fill,
-                                   prefiltered=prefiltered)
+                                   sinscl=sinscl, prefiltered=prefiltered,
+                                   row0=row0)
         return vals, valid, esc
     if dev.type != "cuda":
         raise ValueError(f"sample_cutouts: unsupported device {dev}")
@@ -83,7 +92,8 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     with torch.cuda.device(dev):
         rc = fn(image.data_ptr(), H, W, x.data_ptr(), y.data_ptr(),
                 x.numel(), vals.data_ptr(), valid.data_ptr(), _CODES[interp],
-                float(fill), torch.cuda.current_stream(dev).cuda_stream)
+                float(fill), float(sinscl), int(row0),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sample_cutouts: kernel launch failed "
                            f"(cudaError {rc})")

@@ -20,6 +20,7 @@ import torch
 from ..ops.correlate import Displacement
 from ..ops.correlate import find_displacement as _find_displacement
 from ..ops.correlate import measure_window as _plain
+from ..ops.correlate import window_fits
 from . import LAUNCHES
 from ._build import load
 
@@ -86,11 +87,17 @@ def _plan(B: int, H: int, W: int, nwin: int, ny: int, nx: int, kernel: int,
 
 
 def kernel_route(B: int, H: int, W: int, nwin: int, bounds,
-                 kernel: str | None = None) -> Route:
+                 kernel: str | None = None) -> Route | None:
     """The route B (H, W) pairs take on the current CUDA device at window
     ``nwin`` and search box ``bounds`` (r0, r1, c0, c1): by shape, or
-    through ``kernel`` when it is given (as :func:`measure_window`)."""
+    through ``kernel`` when it is given (as :func:`measure_window`).
+    None, by shape, where no kernel takes it
+    (:func:`~subpixal_tpu_torch.ops.correlate.window_fits`):
+    ``find_displacement`` then takes its full-surface chain."""
     r0, r1, c0, c1 = (int(v) for v in bounds)
+    if kernel is None and not window_fits(H, W, int(nwin), r1 - r0,
+                                          c1 - c0):
+        return None
     return _plan(B, H, W, int(nwin), r1 - r0, c1 - c0, _kernel_code(kernel),
                  torch.cuda.current_device())[0]
 
@@ -172,7 +179,9 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
     Square 16, 32 and 64 cutouts take the FFT kernel, every
     other shape the mixed-radix kernel (:func:`kernel_route`); ``kernel``
     'fft' or 'mixed_radix' asks for one of them (ValueError where it does
-    not take the shape; the mixed-radix kernel takes every shape).
+    not take the shape; the mixed-radix kernel takes every shape that
+    :func:`~subpixal_tpu_torch.ops.correlate.window_fits` takes, and
+    ``find_displacement`` calls it for no other).
     """
     if cc_type not in ("CC", "NCC", "ZNCC"):
         raise ValueError(

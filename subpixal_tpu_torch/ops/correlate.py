@@ -9,10 +9,12 @@ package's CPU path is ``jnp.fft``; its TPU matmul-DFT and lane-packed
 layouts have no counterpart on the card). The coarse integer peak under a
 small search box is read from a windowed half-spectrum matrix DFT, and
 the integer part of every DFT phase is reduced in int32 before any float
-(:func:`_us_dft_kernel`), as in the reference. With ``usfac > 1`` and
-such a box the whole measurement is :func:`measure_window`, or the
-callable passed as ``find_displacement(measure=...)``: the align loop and
-the package's public ``find_displacement`` pass kernel B3's wrapper
+(:func:`_us_dft_kernel`), as in the reference. With ``usfac > 1``, such
+a box and a shape kernel B3 takes (:func:`window_fits`, a pure function
+of the shape, so every device takes one route) the whole measurement is
+:func:`measure_window`, or the callable passed as
+``find_displacement(measure=...)``: the align loop and the package's
+public ``find_displacement`` pass kernel B3's wrapper
 (:mod:`subpixal_tpu_torch.kernels.measure`).
 
 Sign convention: ``find_displacement(ref, img)`` returns ``(dx, dy)``
@@ -31,11 +33,19 @@ from .._precision import full_f32
 from .peaks import find_peak, normalize_search_box
 
 __all__ = ["cross_correlate", "find_displacement", "measure_window",
-           "Displacement"]
+           "window_fits", "window_route", "Displacement"]
 
 #: largest search-window side whose coarse lags are evaluated by the
 #: windowed matrix DFT instead of the full inverse transform
 _WINDOWED_COARSE_MAX = 17
+
+#: shared memory (floats) one CTA of kernel B3 may take: the H100's
+#: 227 KiB a block (``csrc/measure_displacement.cu · kSmemOne``)
+_B3_SMEM_FLOATS = 227 * 1024 // 4
+
+#: floats of a B3 CTA's reduction scratch (``kRed``: 4 partial sums and
+#: an argmax pair for each of 16 warps, 16 slots of cluster sums)
+_B3_RED_FLOATS = 4 * 16 + 16 + 2 * 16
 
 
 class Displacement(NamedTuple):
@@ -224,6 +234,48 @@ def measure_window(ref, img, ref_mask=None, img_mask=None, *,
     return C, s0y, s0x
 
 
+def window_fits(H: int, W: int, nwin: int, ny: int, nx: int) -> bool:
+    """Whether the windowed measurement takes (H, W) pairs at window
+    ``nwin`` and an ``ny`` x ``nx`` coarse search box.
+
+    A pure function of the shape: kernel B3's limit, on every device. Its
+    mixed-radix kernel plans its smallest cut (a cluster of up to 8 CTAs,
+    at most ``min(H, W//2 + 1)``, with the line buffers in a global
+    workspace); that CTA must still hold in shared memory the twiddles,
+    the (nwin, H) window kernel, its (nwin, odd-padded column share) of
+    the other, the coarse and window sums and the reduction scratch
+    (``csrc/measure_displacement.cu · mix_plan``, which refuses exactly
+    these shapes). They grow with ``nwin · H``: 512² cutouts pass at
+    ``usfac`` 10 (nwin 16) and fail from ``usfac`` 43 (nwin 56).
+    """
+    Wr = W // 2 + 1
+    C = 8
+    while C > 1 and C > min(H, Wr):
+        C //= 2
+    cols = -(-Wr // C) | 1
+    floats = (_B3_RED_FLOATS + 2 * (H + W) + 2 * nwin * H + 2 * nwin * cols
+              + ny * nx + nwin * nwin)
+    return floats <= _B3_SMEM_FLOATS
+
+
+def window_route(H: int, W: int, usfac: int, peak_fit_box: int,
+                 peak_search_box):
+    """How :func:`find_displacement` measures (H, W) pairs at ``usfac >
+    1``: ``(bounds, nwin, windowed)``, the search box on the surface (or
+    None), the window's side (±0.5 coarse px, i.e. ``usfac`` upsampled px,
+    plus the fit box, rounded up to a multiple of 8), and whether the
+    windowed measurement takes it (a box of at most 17 lags a side that
+    :func:`window_fits` takes) rather than the full surface."""
+    bounds = normalize_search_box(peak_search_box, H, W, peak_fit_box)
+    nwin = -(-(int(usfac) + int(peak_fit_box) + 1) // 8) * 8
+    windowed = (bounds is not None
+                and bounds[1] - bounds[0] <= _WINDOWED_COARSE_MAX
+                and bounds[3] - bounds[2] <= _WINDOWED_COARSE_MAX
+                and window_fits(H, W, nwin, bounds[1] - bounds[0],
+                                bounds[3] - bounds[2]))
+    return bounds, nwin, windowed
+
+
 @full_f32()
 def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
                       peak_fit_box: int = 5, fit_type: str = "quadratic",
@@ -236,7 +288,10 @@ def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
     matrix-DFT upsampled window; masks mark valid pixels;
     ``peak_search_box`` confines the coarse argmax ('fitbox' = around
     zero lag). ``measure`` computes the windowed ``usfac > 1``
-    measurement, with :func:`measure_window`'s contract."""
+    measurement, with :func:`measure_window`'s contract, where
+    :func:`window_route` takes it; the other shapes and boxes take the
+    full inverse transform and its argmax inside the box (the same lags),
+    on every device."""
     squeeze = ref.dim() == 2
     ref_b = ref[None] if squeeze else ref
     img_b = img[None] if squeeze else img
@@ -253,13 +308,8 @@ def find_displacement(ref, img, cc_type: str = "NCC", usfac: int = 1,
         res = Displacement(dx=pk.x - W // 2, dy=pk.y - H // 2,
                            peak=pk.value, fit_ok=pk.fit_ok)
     else:
-        bounds = normalize_search_box(peak_search_box, H, W, peak_fit_box)
-        # window: ±0.5 coarse px (usfac upsampled px) plus the fit box,
-        # rounded up to a multiple of 8
-        nwin = -(-(int(usfac) + int(peak_fit_box) + 1) // 8) * 8
-        windowed = (bounds is not None
-                    and bounds[1] - bounds[0] <= _WINDOWED_COARSE_MAX
-                    and bounds[3] - bounds[2] <= _WINDOWED_COARSE_MAX)
+        bounds, nwin, windowed = window_route(H, W, usfac, peak_fit_box,
+                                              peak_search_box)
         if windowed:
             C, s0y, s0x = measure(
                 ref_b, img_b, ref_mask, img_mask, cc_type=cc_type,

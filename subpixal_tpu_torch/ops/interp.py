@@ -146,13 +146,16 @@ def _axis_weights(t: torch.Tensor, interp: str, sinscl: float = 1.0):
 
 def sample_image(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  interp: str = "poly5", fill: float = 0.0,
-                 sinscl: float = 1.0, prefiltered: bool = False):
+                 sinscl: float = 1.0, prefiltered: bool = False,
+                 row0: int = 0):
     """Sample ``image`` at float coordinates (x, y) (0-based, x=column).
 
     Returns ``(values, valid)`` with the shapes of ``x``; ``valid`` is
     False where the interpolation footprint left the image (those values
     are ``fill``). ``interp='spline3'`` prefilters ``image`` first unless
-    ``prefiltered``.
+    ``prefiltered``. ``row0`` is the row of ``y``'s frame at which
+    ``image`` starts (a band of a larger plane), taken from the integer
+    row, so the fraction stays the frame's own.
     """
     H, W = image.shape
     if interp == "spline3" and not prefiltered:
@@ -165,7 +168,7 @@ def sample_image(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if interp == "nearest":
         # floor(x+0.5): the reference's (int)(x+0.5), not banker's rounding
         xi = torch.floor(x + 0.5).to(torch.int64)
-        yi = torch.floor(y + 0.5).to(torch.int64)
+        yi = torch.floor(y + 0.5).to(torch.int64) - row0
         valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
         vals = flat[yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
         return torch.where(valid, vals, fill_t), valid
@@ -175,7 +178,7 @@ def sample_image(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     wx, offs = _axis_weights(x - x0, interp, sinscl=sinscl)
     wy, _ = _axis_weights(y - y0, interp, sinscl=sinscl)
     xi0 = x0.to(torch.int64)
-    yi0 = y0.to(torch.int64)
+    yi0 = y0.to(torch.int64) - row0
     lo, hi = offs[0], offs[-1]
     valid = ((xi0 + lo >= 0) & (xi0 + hi < W)
              & (yi0 + lo >= 0) & (yi0 + hi < H))

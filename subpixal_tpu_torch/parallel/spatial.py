@@ -480,8 +480,8 @@ def sample_spatial(
 
     On CUDA, for every interpolant but ``nearest``, the band is extended
     by the interpolant's footprint (``hi - lo + 1`` rows), the queries
-    whose ``floor(y)`` it owns are sampled whole by kernel B2 (the others
-    clamped into the band, so nothing reads outside it, and masked), and
+    whose ``floor(y)`` it owns are sampled whole by kernel B2 (which
+    reads no row outside the extended band; the others are masked), and
     the values times ownership-and-validity and the ownership-and-
     validity are ``all_reduce``-d: ownership partitions the queries, so
     the union is exact. ``nearest`` and CPU tensors sum the bands' plain
@@ -509,9 +509,6 @@ def sample_spatial(
     # every unowned one, with a row to spare
     halo_i = hi - lo + 1
     use_kernel = dev.type == "cuda" and interp != "nearest"
-    if use_kernel and interp == "sinc" and sinscl != 1.0:
-        raise ValueError("sample_spatial: kernel B2's sinc takes sinscl=1 "
-                         f"only; got sinscl={sinscl} on {dev}")
     if interp == "spline3":
         # every extended slot's reflection must land in the rank's own
         # extended range: the halo must fit a band beside the row padding
@@ -551,15 +548,16 @@ def sample_spatial(
         # ownership: floor(y) in this band's rows, i.e. y in [row0,
         # row0 + Hl): the float compare needs no floor
         own = (y >= row0) & (y < row0 + Hl)
-        y_loc = torch.clamp(y - np.float32(row0) + np.float32(halo_i),
-                            halo_i - 0.5, halo_i + Hl)
-        # B2 takes (B, h, w) grids: points and planes become one row
+        # B2 takes (B, h, w) grids: points and planes become one row; the
+        # extended band starts at global row row0 - halo_i, which B2
+        # takes from floor(y) in integers (a float shift of y would round
+        # its fraction)
         shape3 = ((1, 1, -1) if x.dim() < 3
                   else (-1,) + tuple(x.shape[-2:]))
         vals_b, valid_b, _ = sample_cutouts(
             ext.contiguous(), x.reshape(shape3).contiguous(),
-            y_loc.reshape(shape3).contiguous(), interp=interp, fill=0.0,
-            prefiltered=True)
+            y.reshape(shape3).contiguous(), interp=interp, fill=0.0,
+            prefiltered=True, sinscl=sinscl, row0=row0 - halo_i)
         okb = valid_b.reshape(x.shape) & own
         red = _psum(torch.stack([
             torch.where(okb, vals_b.reshape(x.shape), 0.0),

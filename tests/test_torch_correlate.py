@@ -137,3 +137,76 @@ def test_upsampling_phase_is_integer_exact():
     t = t_fd(torch.from_numpy(base[None]), torch.from_numpy(img),
              usfac=10, peak_search_box=None)
     assert abs(float(t.dx[0]) - 11) < 1e-3 and abs(float(t.dy[0]) + 7) < 1e-3
+
+
+def _nwin(usfac, peak_fit_box=5):
+    return -(-(usfac + peak_fit_box + 1) // 8) * 8
+
+
+@pytest.mark.parametrize("H,W,usfac,box,takes", [
+    (32, 32, 8, 5, True),       # the align paths' shapes
+    (48, 48, 8, 5, True),
+    (256, 256, 8, 5, True),     # the oversized bucket's cap
+    (512, 512, 10, 17, True),
+    (112, 254, 10, 5, True),    # 7·16 by 2·127
+    (509, 509, 10, 5, True),    # a prime
+    (512, 512, 42, 5, True),    # nwin 48
+    (512, 512, 43, 5, False),   # nwin 56: past a CTA's shared memory
+    (256, 256, 100, 5, False),  # nwin 112
+    (1024, 1024, 10, 5, True),
+    (1024, 1024, 20, 5, False),
+])
+def test_window_fits_shape_rule(H, W, usfac, box, takes):
+    """The windowed measurement's shape rule: kernel B3's shared memory
+    at its smallest cut grows with nwin · H."""
+    from subpixal_tpu_torch.ops.correlate import window_fits
+
+    assert window_fits(H, W, _nwin(usfac), box, box) is takes
+
+
+def test_window_fits_reads_the_kernels_constants():
+    """The rule's constants are those of csrc/measure_displacement.cu:
+    227 KiB a CTA, clusters of up to 8 CTAs of up to 512 threads."""
+    import pathlib
+    import re
+
+    import subpixal_tpu_torch
+
+    src = (pathlib.Path(subpixal_tpu_torch.__file__).parent / "csrc"
+           / "measure_displacement.cu").read_text()
+    assert re.search(r"kSmemOne = 227 \* 1024;", src)
+    assert re.search(r"kMaxCluster = 8;", src)
+    assert re.search(r"kClusterThreads = 512;", src)
+    assert re.search(r"kRedSlots = 4 \* kMaxWarps, kRedArg = kRedSlots \+ 16;",
+                     src)
+    assert re.search(r"kRed = kRedArg \+ 2 \* kMaxWarps;", src)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_find_displacement_past_window_fits_matches_jax(masked):
+    """512² pairs at usfac 50 (nwin 56) under the 'fitbox' search: past
+    kernel B3's shapes, so the port's find_displacement takes the full
+    surface without calling the windowed measurement, and matches the JAX
+    package's default path."""
+    from subpixal_tpu_torch.kernels.measure import find_displacement
+
+    ref, img, mask = _pairs(512, B=2, seed=7)
+    kw = dict(cc_type="NCC", usfac=50, fit_type="gaussian")
+    jm = jnp.asarray(mask) if masked else None
+    tm = torch.from_numpy(mask) if masked else None
+
+    def refuse(*a, **k):
+        raise AssertionError("the windowed measurement was called")
+
+    j = j_fd(jnp.asarray(ref), jnp.asarray(img), ref_mask=jm, img_mask=jm,
+             **kw)
+    tr, ti = torch.from_numpy(ref), torch.from_numpy(img)
+    t = t_fd(tr, ti, ref_mask=tm, img_mask=tm, measure=refuse, **kw)
+    k = find_displacement(tr, ti, ref_mask=tm, img_mask=tm, **kw)
+    for r in (t, k):
+        np.testing.assert_array_equal(r.fit_ok.numpy(), np.asarray(j.fit_ok))
+        assert r.fit_ok.all()
+        np.testing.assert_allclose(r.dx.numpy(), np.asarray(j.dx),
+                                   atol=SHIFT_TOL)
+        np.testing.assert_allclose(r.dy.numpy(), np.asarray(j.dy),
+                                   atol=SHIFT_TOL)

@@ -35,7 +35,9 @@ from subpixal_tpu_torch.ops.drizzle import \
 from subpixal_tpu_torch.ops.correlate import \
     find_displacement as plain_find_displacement
 from subpixal_tpu_torch.ops.correlate import measure_window as plain_measure
-from subpixal_tpu_torch.ops.interp import INTERP_TAPS, sample_image
+from subpixal_tpu_torch.ops.correlate import window_fits
+from subpixal_tpu_torch.ops.interp import (INTERP_OFFSETS, INTERP_TAPS,
+                                           sample_image)
 from subpixal_tpu_torch.ops.peaks import normalize_search_box
 from subpixal_tpu_torch.resample import Exposure
 from subpixal_tpu_torch.wcs import TanWCS
@@ -204,6 +206,121 @@ def test_gather_kernel_matches_plain(card, interp):
     assert esc.shape == (x.shape[0],) and int(esc.abs().sum()) == 0
 
 
+def _sinc_tap_sum(t, sinscl):
+    """The sinc's raw tap sum per axis at fractions ``t`` (what the
+    bilinear guard tests), in float64."""
+    t = t.double()
+    total = torch.zeros_like(t)
+    for o in INTERP_OFFSETS["sinc"]:
+        x = t - o
+        total += torch.where(x.abs() >= 3.0, 0.0,
+                             torch.sinc(x / sinscl) * torch.sinc(x / 3.0))
+    return total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sinscl", [0.5, 1.5, 2.0])
+@pytest.mark.parametrize("grids", ["512 x 32²", "whole plane"])
+def test_gather_sinc_sinscl_matches_plain(card, grids, sinscl):
+    """B2's sinc at another scale (a run-time argument of the kernel):
+    512 rotated cutout grids of 32² over a star field, and
+    test_gather_kernel_matches_plain's grids; a quarter of the queries
+    sit on or near fraction 0.5, where at sinscl 0.5 the taps sum to ~0
+    and both take bilinear weights."""
+    if grids == "whole plane":
+        img, x, y = _cutout_grids(card)
+    else:
+        img, x, y = _star_grids(card, 512, 32, 0.2, seed=5)
+    g = torch.Generator(device="cpu").manual_seed(int(10 * sinscl))
+    near = 0.5 + 0.02 * (torch.rand(x[:, ::4].shape, generator=g) - 0.5)
+    x[:, ::4] = torch.floor(x[:, ::4]) + near.to(card)
+    before = kernels.LAUNCHES["blot_gather"]
+    v, ok, _ = sample_cutouts(img, x, y, interp="sinc", fill=-2.5,
+                              sinscl=sinscl)
+    pv, pok = sample_image(img, x, y, interp="sinc", fill=-2.5,
+                           sinscl=sinscl)
+    one, _, _ = sample_cutouts(img, x, y, interp="sinc", fill=-2.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["blot_gather"] == before + 2
+    assert torch.equal(ok, pok) and 0 < float(ok.float().mean()) < 1
+    assert _close(v, pv)
+    assert not _close(v, one)  # the scale is honoured
+    guard = (_sinc_tap_sum(x - torch.floor(x), sinscl).abs() < 1e-3) & ok
+    assert bool(guard.any()) == (sinscl < 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", sorted(INTERP_TAPS))
+def test_gather_band_row0_equals_whole_plane(card, interp):
+    """B2 on a band of a plane at the plane's coordinates, the band's
+    first row given as ``row0`` (as sample_spatial launches it on a halo-
+    extended band): the whole plane's B2 values bit for bit where the
+    footprint lies in the band, and validity exactly there, at rows near
+    1024, where a float shift of y would round its fraction."""
+    rng = np.random.default_rng(4)
+    plane = torch.tensor(rng.uniform(0.0, 4.0, (1100, 40)),
+                         dtype=torch.float32, device=card)
+    r0, r1 = 1000, 1060
+    band = plane[r0:r1].contiguous()
+    x = torch.tensor(rng.uniform(-3, 43, (8, 6, 7)), dtype=torch.float32,
+                     device=card)
+    y = torch.tensor(rng.uniform(r0 - 4, r1 + 4, (8, 6, 7)),
+                     dtype=torch.float32, device=card)
+    kw = dict(interp=interp, fill=-3.0, prefiltered=True, sinscl=0.5)
+    want, wok, _ = sample_cutouts(plane, x, y, **kw)
+    got, ok, _ = sample_cutouts(band, x, y, row0=r0, **kw)
+    torch.cuda.synchronize()
+    offs = INTERP_OFFSETS[interp]
+    fy = torch.floor(y + 0.5 if interp == "nearest" else y).long()
+    inside = (fy + offs[0] >= r0) & (fy + offs[-1] < r1)
+    assert torch.equal(ok, wok & inside) and bool(ok.any())
+    assert torch.equal(got[ok], want[ok])
+    assert bool((got[~ok] == -3.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sinscl", [0.5, 1.5, 2.0])
+def test_blot_image_and_cutout_sinc_sinscl_on_card(card, sinscl):
+    """blot_image and blot_cutout with interp='sinc' at another scale go
+    through B2 on the card (one launch each) and match the plain version
+    (blot_image) and the CPU run (blot_cutout) within REL_TOL."""
+    from subpixal_tpu_torch.blot import blot_cutout, blot_image
+    from subpixal_tpu_torch.cutout import Cutout
+
+    img, _, _ = _cutout_grids(card)
+    rng = np.random.default_rng(int(10 * sinscl))
+    th = np.deg2rad(0.4)
+    yy, xx = np.mgrid[0:200, 0:240].astype(np.float64)
+    px = np.cos(th) * xx - np.sin(th) * yy + rng.uniform(50, 70)
+    py = np.sin(th) * xx + np.cos(th) * yy + rng.uniform(50, 70)
+    px[::3] = np.floor(px[::3]) + 0.5  # on the sinc-0.5 guard
+    px = torch.tensor(px, dtype=torch.float32, device=card)
+    py = torch.tensor(py, dtype=torch.float32, device=card)
+    before = kernels.LAUNCHES["blot_gather"]
+    v, ok = blot_image(img, px, py, interp="sinc", expout=2.5, fill=-1.0,
+                       sinscl=sinscl)
+    pv, pok = sample_image(img, px, py, interp="sinc", fill=-1.0,
+                           sinscl=sinscl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["blot_gather"] == before + 1
+    assert v.shape == px.shape and torch.equal(ok, pok)
+    assert 0 < float(ok.float().mean()) < 1
+    assert _close(v[ok], 2.5 * pv[ok])
+    cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
+    w = TanWCS(crpix=np.array([150.0, 128.0]), crval=np.array([150.0, 2.0]),
+               cd=cd)
+    src = Cutout(img.cpu().numpy(), w, exptime=100.0)
+    dst = Cutout(np.zeros((40, 36), np.float32),
+                 w.with_shifted_crpix(10.3, 7.6), blc=(7, 10),
+                 exptime=300.0)
+    before = kernels.LAUNCHES["blot_gather"]
+    got = blot_cutout(src, dst, interp="sinc", sinscl=sinscl, device=card)
+    assert kernels.LAUNCHES["blot_gather"] == before + 1
+    want = blot_cutout(src, dst, interp="sinc", sinscl=sinscl, device="cpu")
+    np.testing.assert_array_equal(got.mask, want.mask)
+    assert _close(torch.tensor(got.data), torch.tensor(want.data))
+
+
 def _star_grids(dev, B, n, rot, seed, shape=(1024, 1024)):
     """An image of stars and B (n, n) cutout grids rotated by ``rot``
     degrees, at fractional centers spread over the frame (edge cutouts go
@@ -292,20 +409,22 @@ def test_kernels_raise_on_inputs_they_do_not_take(card):
 
 
 def _pairs(dev, B, n, shift, masked, seed=0, sigma=1.6):
-    """Star cutout pairs (img shifted by up to ``shift`` px), with a
-    shared bool mask as the align loop passes."""
+    """Star cutout pairs of n x n (or an (H, W) pair: n), img shifted by
+    up to ``shift`` px, with a shared bool mask as the align loop
+    passes."""
+    H, W = (n, n) if np.ndim(n) == 0 else n
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
     dx = rng.uniform(-shift, shift, B)[:, None, None]
     dy = rng.uniform(-shift, shift, B)[:, None, None]
 
     def star(ox, oy):
-        return np.exp(-((xx - n / 2 - ox) ** 2 + (yy - n / 2 - oy) ** 2)
+        return np.exp(-((xx - W / 2 - ox) ** 2 + (yy - H / 2 - oy) ** 2)
                       / (2 * sigma ** 2))
 
-    ref = star(0.0, 0.0)[None] + rng.normal(0, 1e-3, (B, n, n))
-    img = star(dx, dy) + rng.normal(0, 1e-3, (B, n, n))
-    mask = (torch.tensor(rng.random((B, n, n)) > 0.05, device=dev)
+    ref = star(0.0, 0.0)[None] + rng.normal(0, 1e-3, (B, H, W))
+    img = star(dx, dy) + rng.normal(0, 1e-3, (B, H, W))
+    mask = (torch.tensor(rng.random((B, H, W)) > 0.05, device=dev)
             if masked else None)
     return (torch.tensor(ref, dtype=torch.float32, device=dev),
             torch.tensor(img, dtype=torch.float32, device=dev), mask)
@@ -462,6 +581,80 @@ def test_measure_mixed_kernel_asked_for_at_fft_shapes(card, n, masked):
         measure_window(r48, i48, m48, m48, kernel="fft", cc_type="NCC",
                        usfac=8, nwin=16,
                        bounds=normalize_search_box("fitbox", 48, 48, 5))
+
+
+#: cutout sides of the B3 sweep, up to 512: the FFT kernel's, multiples
+#: of 16, large prime factors (7·16, 2·127, 127, 509) and odd sides
+SWEEP_SIDES = (16, 24, 32, 45, 48, 64, 96, 112, 127, 128, 200, 254, 256,
+               384, 509, 512)
+#: upsampling factors of the sweep (nwin 16, 16, 32, 56, 112)
+SWEEP_USFAC = (8, 10, 20, 50, 100)
+
+
+def _nwin(usfac, peak_fit_box=5):
+    return -(-(usfac + peak_fit_box + 1) // 8) * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 512])
+def test_measure_plan_refuses_what_window_fits_refuses(card, B):
+    """B3's host plan (measure_window_plan) against the shape rule that
+    find_displacement routes by, on every pair of SWEEP_SIDES at every
+    SWEEP_USFAC under 'fitbox' (5 x 5) and a 17 x 17 box: the plan takes
+    a shape exactly where window_fits does."""
+    from subpixal_tpu_torch.kernels.measure import _PLAN, _lib
+
+    plan_fn = _lib().measure_window_plan
+    refused = []
+    for H in SWEEP_SIDES:
+        for W in SWEEP_SIDES:
+            for usfac in SWEEP_USFAC:
+                for box in (5, 17):
+                    nwin = _nwin(usfac)
+                    plan = _PLAN()
+                    nws = plan_fn(B, H, W, nwin, box, box, -1, plan)
+                    assert (nws >= 0) == window_fits(H, W, nwin, box, box), \
+                        (B, H, W, nwin, box)
+                    if nws < 0:
+                        refused.append((H, W, nwin))
+    # none at the align paths' usfac 8 and 10 (nwin 16)
+    assert refused and min(nwin for _, _, nwin in refused) >= 56
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,usfac,masked", [
+    (6, 112, 112, 8, True),      # 7·16
+    (4, 254, 254, 10, False),    # 2·127
+    (3, 112, 254, 10, True),     # non-square
+    (3, 509, 384, 8, True),      # a prime side
+    (2, 512, 512, 10, False),
+    (2, 512, 512, 42, True),     # the largest usfac 512² takes (nwin 48)
+    (2, 512, 512, 50, True),     # refused: nwin 56
+    (2, 256, 256, 100, False),   # refused: nwin 112
+    (3, 254, 112, 100, True),    # refused, non-square
+])
+def test_find_displacement_every_shape_on_card(card, B, H, W, usfac,
+                                               masked):
+    """The package's find_displacement returns a result at every shape:
+    through B3 (one launch) where window_fits takes the shape, through the
+    full-surface chain (no launch) where it does not; both within 1e-3 px
+    of the plain find_displacement on the card."""
+    ref, img, m = _pairs(card, B, (H, W), 0.45, masked, seed=H + W,
+                         sigma=2.0)
+    kw = dict(usfac=usfac, fit_type="gaussian", ref_mask=m, img_mask=m)
+    fits = window_fits(H, W, _nwin(usfac), 5, 5)
+    route = kernel_route(B, H, W, _nwin(usfac),
+                         normalize_search_box("fitbox", H, W, 5))
+    assert (route is not None) == fits
+    before = kernels.LAUNCHES["measure_displacement"]
+    d = find_displacement(ref, img, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["measure_displacement"] == before + int(fits)
+    dp = plain_find_displacement(ref, img, **kw)
+    assert bool(torch.isfinite(d.dx).all() and torch.isfinite(d.dy).all())
+    assert bool(d.fit_ok.all())
+    assert float((d.dx - dp.dx).abs().max()) < 1e-3
+    assert float((d.dy - dp.dy).abs().max()) < 1e-3
 
 
 @pytest.mark.cuda
@@ -943,6 +1136,13 @@ for interp in ("nearest", "linear", "poly3", "poly5", "spline3", "sinc"):
         logical_rows=H))
     out[interp + "_val"] = v.cpu().numpy()
     out[interp + "_ok"] = ok.cpu().numpy()
+for sinscl in (0.5, 1.5, 2.0):
+    key = f"sinc{int(10 * sinscl)}"
+    v, ok = count(key, lambda: sample_spatial(
+        mesh, band, z["qx"], z["qy"], interp="sinc", sinscl=sinscl,
+        fill=-7.0, logical_rows=H))
+    out[key + "_val"] = v.cpu().numpy()
+    out[key + "_ok"] = ok.cpu().numpy()
 cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
 exps = [Exposure(z["exp"][e].cpu().numpy(), TanWCS(
     crpix=np.array([128.3 + 0.4 * e, 128.0 - 0.3 * e]),
@@ -1061,20 +1261,25 @@ def test_sample_spatial_b2_matches_whole_plane(card, spatial_kernels, world,
 
 
 @pytest.mark.cuda
-def test_sample_spatial_refuses_sinc_sinscl_on_card(card):
-    """Kernel B2's sinc takes sinscl=1 only: on the card sample_spatial
-    refuses another sinc scale, as blot_image does, rather than return
-    the sinscl=1 values (the CPU's plain partials honour it)."""
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("sinscl", [0.5, 1.5, 2.0])
+def test_sample_spatial_sinc_sinscl_matches_plain(card, spatial_kernels,
+                                                  world, sinscl):
+    """sample_spatial(interp='sinc', sinscl=s) through B2 on each rank's
+    band (one launch a rank), against the plain partials (the same call
+    on CPU tensors, one band): equal validity, values within REL_TOL."""
     from subpixal_tpu_torch.parallel.sharding import Mesh
     from subpixal_tpu_torch.parallel.spatial import sample_spatial
 
-    mesh = Mesh(None, 0, 1, card, ("rows",))
-    band = torch.rand((32, 32), device=card)
-    q = torch.full((4,), 10.5, device=card)
-    with pytest.raises(ValueError, match="sinscl"):
-        sample_spatial(mesh, band, q, q, interp="sinc", sinscl=2.0)
-    v, ok = sample_spatial(mesh, band, q, q, interp="sinc")
-    assert bool(ok.all()) and bool(torch.isfinite(v).all())
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    key = f"sinc{int(10 * sinscl)}"
+    mesh = Mesh(None, 0, 1, torch.device("cpu"), ("rows",))
+    want, ok = sample_spatial(mesh, z["plane"], z["qx"], z["qy"],
+                              interp="sinc", sinscl=sinscl, fill=-7.0)
+    assert torch.equal(torch.tensor(out[key + "_ok"]), ok)
+    assert _close(torch.tensor(out[key + "_val"]), want)
+    assert all(la[key]["blot_gather"] == 1 for la in launches)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ from scipy import ndimage
 from subpixal_tpu.ops.interp import bspline3_prefilter as j_prefilter
 from subpixal_tpu.ops.interp import sample_image as j_sample
 from subpixal_tpu_torch.kernels.blot import sample_cutouts
-from subpixal_tpu_torch.ops.interp import INTERP_TAPS, bspline3_prefilter
+from subpixal_tpu_torch.ops.interp import (INTERP_OFFSETS, INTERP_TAPS,
+                                           bspline3_prefilter)
 from subpixal_tpu_torch.ops.interp import sample_image as t_sample
 
 torch.set_num_threads(2)
@@ -87,3 +88,32 @@ def test_sample_cutouts_rejects_bad_shapes():
     with pytest.raises(ValueError):
         sample_cutouts(img, torch.zeros(1, 4, 4), torch.zeros(1, 4, 4),
                        interp="cubic")
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_band_row0_sampling_equals_whole_plane(interp):
+    """A band of a plane sampled at the plane's coordinates with
+    ``row0`` (the band's first row; B2's wrapper, plain on the CPU) gives
+    the whole plane's values bit for bit where the footprint lies in the
+    band, and validity exactly where it does: the row origin is taken in
+    integers, so no fraction is rounded. Rows near 1024, where a float
+    shift by the band's offset would round the fraction, are among them."""
+    rng = np.random.default_rng(4)
+    plane = torch.tensor(rng.uniform(0.0, 4.0, (1100, 40)),
+                         dtype=torch.float32)
+    if interp == "spline3":
+        plane = bspline3_prefilter(plane)
+    r0, r1 = 1000, 1060
+    band = plane[r0:r1].contiguous()
+    x = torch.tensor(rng.uniform(-3, 43, (8, 6, 7)), dtype=torch.float32)
+    y = torch.tensor(rng.uniform(r0 - 4, r1 + 4, (8, 6, 7)),
+                     dtype=torch.float32)
+    kw = dict(interp=interp, fill=-3.0, prefiltered=True)
+    want, wok = t_sample(plane, x, y, **kw)
+    got, ok, _ = sample_cutouts(band, x, y, row0=r0, **kw)
+    offs = INTERP_OFFSETS[interp]
+    fy = torch.floor(y + 0.5 if interp == "nearest" else y).long()
+    inside = (fy + offs[0] >= r0) & (fy + offs[-1] < r1)
+    assert torch.equal(ok, wok & inside) and bool(ok.any())
+    assert torch.equal(got[ok], want[ok])
+    assert bool((got[~ok] == -3.0).all())
