@@ -140,13 +140,29 @@ failure):
     scene on two gloo ranks sharing the card for 2 iterations, with phase
     16's checks (no reference run) and the band-local sparse deposit
     engaged: ``sparse_live_frac`` in the setup breakdown and B1 given the
-    compacted (E, L·16, 128) blocks in the loop.
+    compacted (E, L·16, 128) blocks in the loop;
+18. the ``use_pallas=False`` path: phase 9's scene and configuration
+    through ``align_images(..., use_pallas=False)``: no kernel launched,
+    every iteration's shifts within 1e-6 px of the same call through
+    ``_plain_versions``, fit error under 10 mpix, warm ms an iteration
+    beside the kernels'; ``Drizzle(..., use_pallas=False).execute()``
+    launches no B1 and equals the plain per-plane run, and the default
+    ``Drizzle`` still launches B1;
+19. the device-rendered scene: phase 9's scene from
+    ``simulate_stack(device='cuda')`` (``planted`` equal to the host
+    render's), through phase 9's configuration to under 10 mpix; warm
+    ``setup_s`` and the host-to-device copies of a profiled call, beside
+    the host-rendered scene's.
 
 Every align phase prints the measurement route each batch took
 (``route_name``: torch.fft at ``usfac`` 1, B3's kernel, or the full
 surface), and phases 16-17 also hold each rank's ``sample_spatial`` sinc
 at ``sinscl`` 0.5, 1.5 and 2 (one B2 launch a rank) to the plain version
-on the whole plane.
+on the whole plane, and its ``sample_spatial`` on an 8-row plane (bands
+thinner than poly5's footprint on two bands) at poly5 and at spline3
+with ``spline_halo=2``: no B2 launch where the band cannot hold the
+footprint, validity equal to the whole plane's, poly5 within
+``REL_TOL``, and ``use_pallas=True`` refusing those shapes.
 
 Each kernel is timed three ways at each shape: ``ms``, the median of 30
 CUDA-event timings of one wrapper call (host launch overhead and the
@@ -875,7 +891,7 @@ def phase_b3_routes(dev):
                                  f"usfac {usfac}: {n} launches, {diff} px")
 
 
-def _plain_deposit(*args, **kw):
+def _plain_deposit(*args, use_pallas=None, **kw):
     import torch
 
     from subpixal_tpu_torch.ops.drizzle import drizzle_deposit
@@ -884,7 +900,7 @@ def _plain_deposit(*args, **kw):
     return s, w, torch.zeros((), dtype=torch.int32, device=s.device)
 
 
-def _plain_deposit_stack(*args, **kw):
+def _plain_deposit_stack(*args, use_pallas=None, **kw):
     import torch
 
     from subpixal_tpu_torch.ops.drizzle import drizzle_deposit_stack
@@ -895,7 +911,7 @@ def _plain_deposit_stack(*args, **kw):
 
 
 def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False,
-                  sinscl=1.0, row0=0):
+                  sinscl=1.0, row0=0, use_pallas=None):
     import torch
 
     from subpixal_tpu_torch.ops.interp import sample_image
@@ -906,6 +922,12 @@ def _plain_gather(image, x, y, interp="poly5", fill=0.0, prefiltered=False,
                               device=x.device)
 
 
+def _plain_measure(*args, use_pallas=None, **kw):
+    from subpixal_tpu_torch.ops.correlate import measure_window
+
+    return measure_window(*args, **kw)
+
+
 def _plain_versions():
     """Patches under which the align path (setup drizzle, loop) runs the
     kernels' plain versions on the card."""
@@ -914,12 +936,11 @@ def _plain_versions():
     from subpixal_tpu_torch import align as align_mod
     from subpixal_tpu_torch import blot as blot_mod
     from subpixal_tpu_torch import resample as resample_mod
-    from subpixal_tpu_torch.ops.correlate import measure_window
 
     patches = [
         (align_mod, "drizzle_deposit_stack", _plain_deposit_stack),
         (blot_mod, "sample_cutouts", _plain_gather),
-        (blot_mod, "measure_window", measure_window),
+        (blot_mod, "measure_window", _plain_measure),
         (resample_mod, "drizzle_deposit", _plain_deposit),
         (resample_mod, "drizzle_deposit_stack", _plain_deposit_stack)]
     try:  # the spatial mosaics' band deposits and band gathers
@@ -1034,6 +1055,142 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     if not d < 1e-3:
         raise AssertionError(f"{label}: first iteration differs from the "
                              f"plain run by {d} px")
+    return launches, res
+
+
+def phase_use_pallas_false(dev):
+    """The new path's scene (8 x 1024², 60 stars, phase 9's
+    configuration, 4 iterations) through ``align_images(...,
+    use_pallas=False)`` on the card: zero kernel launches, every
+    iteration's shifts within 1e-6 px of the same call under
+    ``_plain_versions`` (the wrappers patched to their plain versions),
+    fit error under 10 mpix, warm ms an iteration printed beside the
+    kernels' (the default call). Then ``Drizzle(..., use_pallas=False)
+    .execute()``: zero B1 launches, planes within REL_TOL of the plain
+    per-plane run, and the default ``Drizzle`` still launching B1.
+    Returns the launch counts of the first call and its result."""
+    import torch
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.align import align_images
+    from subpixal_tpu_torch.resample import Drizzle
+    from subpixal_tpu_torch.testing import (pairwise_shift_errors,
+                                            simulate_stack)
+
+    label = "use_pallas=False path"
+    exps, planted = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                                   seed=11)
+    kw = dict(exposures=exps, device=dev, eps_shift=1e-7, max_iterations=4,
+              **NEW_PATH)
+    kernels.reset_launch_counts()
+    res = align_images(use_pallas=False, **kw)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    warm = align_images(use_pallas=False, **kw)
+    warm_k = align_images(**kw)
+    with _plain_versions():
+        res_p = align_images(**kw)
+    d = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+            for ra, rb in zip(res.history, res_p.history)
+            for a, b in zip(ra, rb))
+    err_mpix = 1e3 * pairwise_shift_errors(res.shifts, planted)
+    print(f"{label}: launches {launches}, {res.n_iterations} iterations, "
+          f"fit error {err_mpix:.3f} mpix, setup_s {res.setup_s:.3f}; "
+          f"every iteration vs the _plain_versions run: max |diff| "
+          f"{d:.3e} px")
+    print(f"{label}, second call: {1e3 * warm.history[-1][0].iter_s:.3f} "
+          f"ms per iteration, setup_s {warm.setup_s:.3f}; the kernels' "
+          f"(use_pallas='auto') second call: "
+          f"{1e3 * warm_k.history[-1][0].iter_s:.3f} ms per iteration, "
+          f"setup_s {warm_k.setup_s:.3f}")
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}")
+    if res.n_iterations != 4 or len(res.history) != len(res_p.history) \
+            or not d < 1e-6:
+        raise AssertionError(f"{label}: {res.n_iterations} iterations, "
+                             f"{d} px from the plain versions' run")
+    if not err_mpix < 10.0:
+        raise AssertionError(f"{label}: fit error {err_mpix} mpix")
+    kernels.reset_launch_counts()
+    dz = Drizzle(exps, device=dev, use_pallas=False)
+    dz.execute()
+    torch.cuda.synchronize()
+    n_plain = kernels.LAUNCHES["drizzle_deposit"]
+    with _plain_versions():
+        dp = Drizzle(exps, device=dev)
+        dp.execute()
+    kernels.reset_launch_counts()
+    dk = Drizzle(exps, device=dev)
+    dk.execute()
+    torch.cuda.synchronize()
+    n_default = kernels.LAUNCHES["drizzle_deposit"]
+    errs = [_rel_err(dz._per_exp[e.name][i], dp._per_exp[e.name][i])[0]
+            for e in exps for i in (0, 1)]
+    print(f"{label}: Drizzle.execute B1 launches {n_plain} "
+          f"(use_pallas=False), {n_default} (default); planes vs the plain "
+          f"per-plane run: max rel err {max(errs):.3e}; stacked: "
+          f"{'deposit_stack' in dz.last_execute_breakdown}")
+    if n_plain != 0 or n_default != 1 or not max(errs) <= REL_TOL:
+        raise AssertionError(f"{label}: Drizzle launches {n_plain} / "
+                             f"{n_default}, planes off by {max(errs)}")
+    return launches, res
+
+
+def phase_device_scene(dev, host_run):
+    """Phase 9's scene rendered on the card (``simulate_stack(device=
+    'cuda')``): ``planted`` equal to the host render's, the frames CUDA
+    tensors, and the new path on it to under 10 mpix. Prints setup_s of a
+    warm call and the host-to-device copies of a profiled call for the
+    device- and the host-rendered scene. Returns the launch counts of the
+    first call and its result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.align import align_images
+    from subpixal_tpu_torch.testing import (pairwise_shift_errors,
+                                            simulate_stack)
+
+    label = "device-rendered scene"
+    scene = dict(n_exp=8, shape=(1024, 1024), n_stars=60, seed=11)
+    t0 = time.time()
+    dexps, dplanted = simulate_stack(device=dev, **scene)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    t0 = time.time()
+    hexps, hplanted = simulate_stack(**scene)
+    host_render_s = time.time() - t0
+    if dplanted != hplanted or any(
+            not isinstance(e.data, torch.Tensor) or e.data.device.type
+            != torch.device(dev).type for e in dexps):
+        raise AssertionError(f"{label}: planted {dplanted} vs {hplanted}, "
+                             f"frames {[type(e.data) for e in dexps]}")
+    kw = dict(device=dev, eps_shift=1e-7, max_iterations=4, **NEW_PATH)
+    kernels.reset_launch_counts()
+    res = align_images(exposures=dexps, **kw)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    err_mpix = 1e3 * pairwise_shift_errors(res.shifts, dplanted)
+    d_host = float(np.abs(res.shifts - host_run.shifts).max())
+    out = {}
+    for name, exps in (("device", dexps), ("host", hexps)):
+        warm = align_images(exposures=exps, **kw)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            align_images(exposures=exps, **kw)
+            torch.cuda.synchronize()
+        h2d = [e for e in prof.key_averages() if "HtoD" in e.key]
+        out[name] = (warm.setup_s, sum(e.count for e in h2d))
+    print(f"{label}: render {render_s:.3f} s on the card, "
+          f"{host_render_s:.3f} s on the host; launches {launches}, fit "
+          f"error {err_mpix:.3f} mpix, shifts vs the host scene's run "
+          f"(other noise) {d_host:.3e} px")
+    print(f"{label}: warm setup_s {out['device'][0]:.4f} with "
+          f"{out['device'][1]} host-to-device copies a call; host-rendered "
+          f"scene: setup_s {out['host'][0]:.4f} with {out['host'][1]}")
+    if res.n_iterations != 4 or not err_mpix < 10.0:
+        raise AssertionError(f"{label}: {res.n_iterations} iterations, fit "
+                             f"error {err_mpix} mpix")
     return launches, res
 
 
@@ -1250,7 +1407,8 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
     plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
                      for a, b in zip(res.history[0], res_p.history[0]))
     return dict(
-        sinc=spatial_sinc_check(mesh, shape), routes=sorted(set(routes)),
+        sinc=spatial_sinc_check(mesh, shape), thin=spatial_thin_check(mesh),
+        routes=sorted(set(routes)),
         device=str(mesh.device), mesh=repr(mesh), launches=launches,
         finds=finds, b1_shapes=b1_shapes, wall=wall, plain_diff=plain_diff,
         shifts=np.asarray(res.shifts).tolist(),
@@ -1301,6 +1459,72 @@ def spatial_sinc_check(mesh, shape):
     return out
 
 
+def spatial_thin_check(mesh):
+    """``sample_spatial`` on this rank's band of a seeded 8-row plane (4
+    rows a band on two bands: thinner than poly5's 6-row footprint) at
+    poly5, and at spline3 with ``spline_halo=2`` (below its 4-row
+    footprint), under the default ``use_pallas``, against the plain
+    ``sample_image`` on the whole plane on the card, at 24 cutout grids
+    of 12² across the bands' boundaries and the edges. Such shapes take
+    the bands' plain partials (no B2 launch); an explicit
+    ``use_pallas=True`` refuses them. Every rank of the mesh calls it.
+    Returns, per case, the relative error, whether validity is equal, the
+    rank's B2 launches, the band rows and whether use_pallas=True
+    raised."""
+    import torch
+
+    from subpixal_tpu_torch import kernels
+    from subpixal_tpu_torch.ops.interp import sample_image
+    from subpixal_tpu_torch.parallel import (band_rows, sample_spatial,
+                                             shard_rows)
+
+    H, W = 8, 96
+    rng = np.random.default_rng(31)
+    gy, gx = np.mgrid[0:12, 0:12].astype(np.float64)
+    cen = np.stack([rng.uniform(-4, W - 8, 24), rng.uniform(-10, H, 24)], 1)
+    q = [torch.tensor(g[None] + c[:, None, None], dtype=torch.float32,
+                      device=mesh.device)
+         for g, c in ((gx, cen[:, 0] + 0.37), (gy, cen[:, 1] + 0.61))]
+    plane = torch.tensor(rng.uniform(0.0, 4.0, (H, W)), dtype=torch.float32,
+                         device=mesh.device)
+    band = shard_rows(mesh, plane)
+    out = {}
+    for interp, halo in (("poly5", 32), ("spline3", 2)):
+        kernels.reset_launch_counts()
+        v, ok = sample_spatial(mesh, band, *q, interp=interp, fill=-7.0,
+                               logical_rows=H, spline_halo=halo)
+        torch.cuda.synchronize(mesh.device)
+        n = kernels.LAUNCHES["blot_gather"]
+        pv, pok = sample_image(plane, *q, interp=interp, fill=-7.0)
+        try:
+            sample_spatial(mesh, band, *q, interp=interp, logical_rows=H,
+                           spline_halo=halo, use_pallas=True)
+            refused = False
+        except ValueError:
+            refused = True
+        out[interp] = dict(rel_err=_rel_err(v, pv)[0],
+                           valid_equal=bool(torch.equal(ok, pok)),
+                           valid=float(ok.float().mean()), launches=n,
+                           band_rows=band_rows(mesh, H), refused=refused)
+    return out
+
+
+def _check_thin(label, r):
+    """``spatial_thin_check``'s record: validity equal to the whole
+    plane's; poly5 within REL_TOL of it; B2 launched (and use_pallas=True
+    accepted) only where the band holds poly5's footprint; spline3 at
+    spline_halo 2 never launched and always refused under True."""
+    print(f"{label}, {r['mesh']}: sample_spatial on an 8-row plane vs "
+          f"plain on the whole plane: " + json.dumps(r["thin"]))
+    for interp, c in r["thin"].items():
+        fits = interp == "poly5" and c["band_rows"] >= 6
+        if (not c["valid_equal"] or c["launches"] != int(fits)
+                or c["refused"] == fits
+                or (interp == "poly5" and c["rel_err"] > REL_TOL)):
+            raise AssertionError(f"{label}: {r['mesh']}'s thin-band "
+                                 f"sample_spatial {interp}: {c}")
+
+
 def _check_spatial(label, recs, iters, ref=None, sparse=False):
     """Phase 16/17 checks on every rank's ``spatial_run`` record: B1 once
     at setup and once an iteration, B2 and B3 once an iteration, the
@@ -1330,6 +1554,7 @@ def _check_spatial(label, recs, iters, ref=None, sparse=False):
                or c["launches"] != 1 for c in r["sinc"].values()):
             raise AssertionError(f"{label}: {r['mesh']}'s sample_spatial "
                                  f"sinc disagrees: {r['sinc']}")
+        _check_thin(label, r)
         if (n != iters or la["drizzle_deposit"] != 1 + n
                 or la["blot_gather"] != n or la["measure_displacement"] != n):
             raise AssertionError(f"{label}: {r['mesh']} launched {la} in "
@@ -1945,6 +2170,8 @@ def main() -> int:
     runs["spatial_4k_2bands"] = phase_spatial_ranks(
         "spatial 4k path, two gloo bands on one card", 2, scene="4k",
         iters=2, sparse=True)
+    runs["use_pallas_false"] = phase_use_pallas_false(dev)
+    runs["device_scene"] = phase_device_scene(dev, runs["align_usfac8"][1])
     # the reference's own bar between the finders (tests/test_align.py)
     d_fin = float(np.abs(runs["defaults"][1].shifts
                          - runs["defaults_host_finder"][1].shifts).max())

@@ -73,6 +73,7 @@ from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
 from .catalogs_spatial import SpatialSourceCatalog
 from .cutout import create_primary_cutouts
+from .kernels import use_pallas as _use_pallas
 from .kernels.drizzle import drizzle_deposit_stack
 from .ops.cutouts import extract_cutouts
 from .ops.drizzle import drizzle_combine, kernel_reach
@@ -100,8 +101,12 @@ DEPOSIT_BLOCK = (16, 128)
 class AlignConfig:
     """Alignment configuration: the fields and defaults of the JAX
     package's ``AlignConfig``. ``use_pallas`` selects the TPU kernels
-    there; here CUDA tensors always take the hand-written kernels, so
-    only its default is accepted."""
+    there and the hand-written CUDA kernels here
+    (:func:`~subpixal_tpu_torch.kernels.use_pallas` on the align's
+    device): ``'auto'`` takes them on CUDA, ``False`` takes their plain
+    versions on any device (under a spatial mesh too, where the JAX
+    package turns its kernels off off TPU), ``True`` on a device that is
+    not CUDA raises ``ValueError``."""
 
     cc_type: str = "NCC"
     fitgeom: str = "general"
@@ -193,9 +198,6 @@ def _check_config(cfg: AlignConfig) -> None:
     if cfg.device_catalog not in ("auto", "device", "host"):
         raise ValueError(f"device_catalog must be 'auto'|'device'|'host', "
                          f"got {cfg.device_catalog!r}")
-    if cfg.use_pallas is False:
-        raise ValueError("use_pallas=False has no counterpart in the port: "
-                         "CUDA tensors always take the CUDA kernels")
 
 
 class _PrimMeta:
@@ -597,12 +599,14 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
     if spatial is not None:
         sampler = functools.partial(sample_spatial, spatial,
                                     logical_rows=out_shape[0],
+                                    use_pallas=cfg.use_pallas,
                                     return_escaped=True)
     Bl = b.px.shape[0]
     off, Bg = (0, Bl) if mesh is None else (mesh.rank * Bl, mesh.size * Bl)
     meas_kw = dict(interp=cfg.interp, cc_type=cfg.cc_type, usfac=cfg.usfac,
                    peak_fit_box=cfg.peak_fit_box, fit_type=cfg.fit_type,
-                   peak_search_box=cfg.peak_search_box)
+                   peak_search_box=cfg.peak_search_box,
+                   use_pallas=cfg.use_pallas)
 
     def per_frame(v, fid):  # (E,) int32 sums of v over the rows' frames
         return torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
@@ -618,12 +622,13 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
             sci, wht, esc_d = drizzle_deposit_stack(
                 b.dep_data, b.dep_wht, px, py, out_shape,
                 pixfrac=cfg.pixfrac, pscale_ratio=b.dep_ratios,
-                kernel=cfg.kernel)
+                kernel=cfg.kernel, use_pallas=cfg.use_pallas)
             drz = drizzle_combine(psum(sci), psum(wht))
         else:  # this rank's band
             sci, wht = _deposit_band(spatial, b.dep_data, b.dep_wht, px, py,
                                      out_shape, cfg.pixfrac, b.dep_ratios,
-                                     cfg.kernel, sum_frames=True)
+                                     cfg.kernel, sum_frames=True,
+                                     use_pallas=cfg.use_pallas)
             drz = drizzle_combine(sci, wht)
             esc_d = torch.zeros(b.dep_data.shape[0], dtype=torch.int32,
                                 device=dev)
@@ -857,13 +862,14 @@ def align_images(
                 "mesh= (frame-sharded align) and a spatial_mesh Drizzle "
                 "(row-band-sharded reference plane) are mutually exclusive "
                 "— the two shard the same devices differently")
+    _use_pallas(cfg.use_pallas, dev)  # use_pallas=True off CUDA raises
 
     if resample is None:
         if exposures is None:
             raise ValueError("provide `resample` (Drizzle) or `exposures`")
         resample = Drizzle(list(exposures), pixfrac=cfg.pixfrac,
-                           kernel=cfg.kernel, wht_type=cfg.wht_type,
-                           device=dev)
+                           kernel=cfg.kernel, use_pallas=cfg.use_pallas,
+                           wht_type=cfg.wht_type, device=dev)
     elif _canon(resample.device) != _canon(dev):
         raise ValueError(f"resample lives on {resample.device}, but "
                          f"device={dev}")
@@ -1479,6 +1485,7 @@ def align_images(
     # would put the whole mosaic on one device, what the mode avoids
     final = Drizzle(out_exps, output_wcs=ref_wcs, output_shape=out_shape,
                     pixfrac=cfg.pixfrac, kernel=cfg.kernel,
+                    use_pallas=cfg.use_pallas,
                     wht_type=resample.wht_type, device=dev,
                     spatial_mesh=spatial)
     return AlignResult(

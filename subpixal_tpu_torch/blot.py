@@ -24,6 +24,8 @@ exact tangent-plane homography -> pixel``:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -545,6 +547,7 @@ def blot_measure(image: torch.Tensor, M: torch.Tensor, t: torch.Tensor,
                  px: torch.Tensor, py: torch.Tensor, img: torch.Tensor,
                  mask: torch.Tensor, seg: torch.Tensor | None = None,
                  interp: str = "poly5", sampler=None,
+                 use_pallas: bool | str = "auto",
                  **measure_kw) -> tuple[Displacement, torch.Tensor]:
     """Blot ``image`` at cutout pixmaps moved by per-cutout affines and
     measure each blotted cutout against its image cutout.
@@ -561,15 +564,19 @@ def blot_measure(image: torch.Tensor, M: torch.Tensor, t: torch.Tensor,
 
     ``sampler(image, x, y, interp=...) -> (values, valid, escapes)`` takes
     the place of kernel B2's wrapper: under a spatial mesh ``image`` is a
-    row band and the sampler ``parallel.sample_spatial``.
+    row band and the sampler ``parallel.sample_spatial``. ``use_pallas``
+    goes to B2's and B3's wrappers (``False``: their plain versions).
     """
     bx, by = _affine_apply_grid(M, t, px, py)
-    vals, ok, esc = (sampler or sample_cutouts)(image.contiguous(), bx, by,
-                                                interp=interp)
+    if sampler is None:
+        sampler = functools.partial(sample_cutouts, use_pallas=use_pallas)
+    vals, ok, esc = sampler(image.contiguous(), bx, by, interp=interp)
     msk = mask & ok
     if seg is not None:
         img = img * seg
         vals = vals * seg
     d = find_displacement(vals, img.contiguous(), ref_mask=msk, img_mask=msk,
-                          measure=measure_window, **measure_kw)
+                          measure=functools.partial(
+                              measure_window, use_pallas=use_pallas),
+                          **measure_kw)
     return d, esc

@@ -73,6 +73,13 @@ class Table:
     def colnames(self) -> list[str]:
         return list(self._cols)
 
+    def copy(self) -> "Table":
+        """A new Table holding a copy of each column."""
+        out = Table()
+        for k, v in self._cols.items():
+            out._cols[k] = v.copy()
+        return out
+
     def __repr__(self):
         return f"Table(rows={len(self)}, cols={self.colnames})"
 

@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from ..ops.interp import INTERP_TAPS, bspline3_prefilter, sample_image
-from . import LAUNCHES
+from . import LAUNCHES, _launches
 from ._build import load
 
 __all__ = ["sample_cutouts"]
@@ -38,7 +38,7 @@ def _lib():
 def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    interp: str = "poly5", fill: float = 0.0,
                    prefiltered: bool = False, sinscl: float = 1.0,
-                   row0: int = 0):
+                   row0: int = 0, use_pallas: bool | str = "auto"):
     """Sample ``image`` (H, W) at per-cutout coordinate grids (B, h, w).
 
     Returns ``(values, valid, escaped)``: values and validity with the
@@ -56,9 +56,10 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     hash of its source, so a checkout whose kernel changed rebuilds it on
     its first call.
 
-    CPU tensors take the plain version. CUDA tensors (contiguous float32,
-    on one device) launch the kernel on the current stream; anything else
-    raises.
+    CPU tensors and ``use_pallas=False`` take the plain version. CUDA
+    tensors (contiguous float32, on one device) launch the kernel on the
+    current stream; anything else raises, ``use_pallas=True`` off CUDA
+    too.
     """
     if interp not in INTERP_TAPS:
         raise ValueError(f"unknown interp: {interp!r} "
@@ -68,14 +69,12 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(
             f"sample_cutouts: image must be (H, W) and x, y (B, h, w); got "
             f"{tuple(image.shape)}, {tuple(x.shape)}, {tuple(y.shape)}")
-    esc = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
-    if dev.type == "cpu":
+    if not _launches(use_pallas, dev, "sample_cutouts"):
         vals, valid = sample_image(image, x, y, interp=interp, fill=fill,
                                    sinscl=sinscl, prefiltered=prefiltered,
                                    row0=row0)
-        return vals, valid, esc
-    if dev.type != "cuda":
-        raise ValueError(f"sample_cutouts: unsupported device {dev}")
+        return vals, valid, torch.zeros(x.shape[0], dtype=torch.int32,
+                                        device=x.device)
     for t in (image, x, y):
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
@@ -98,4 +97,5 @@ def sample_cutouts(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         raise RuntimeError(f"sample_cutouts: kernel launch failed "
                            f"(cudaError {rc})")
     LAUNCHES["blot_gather"] += 1
-    return vals, valid, esc
+    return vals, valid, torch.zeros(x.shape[0], dtype=torch.int32,
+                                    device=dev)

@@ -19,7 +19,7 @@ import torch
 
 from ..ops.drizzle import DRIZZLE_KERNELS, kernel_reach
 from ..ops.drizzle import drizzle_deposit_stack as _plain_stack
-from . import LAUNCHES
+from . import LAUNCHES, _launches
 from ._build import load
 
 __all__ = ["drizzle_deposit", "drizzle_deposit_stack"]
@@ -72,22 +72,23 @@ def _plane_params(kernel: str, pixfrac: float, ratios: tuple, device: str):
 
 
 def _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
-                   pscale_ratio, kernel, direct_strips=None, per_plane=False):
-    """Launch the kernel on a CUDA stack; ``direct_strips`` is None or an
-    int32 CUDA tensor of one element to which the kernel adds each 2 x 128
-    strip that took the direct global-atomics path."""
+                   pscale_ratio, kernel, direct_strips=None, per_plane=False,
+                   use_pallas="auto"):
+    """Launch the kernel on a CUDA stack (the plain version on CPU
+    tensors or under ``use_pallas=False``); ``direct_strips`` is None or
+    an int32 CUDA tensor of one element to which the kernel adds each
+    2 x 128 strip that took the direct global-atomics path."""
     if kernel not in DRIZZLE_KERNELS:
         raise ValueError(f"unknown kernel: {kernel!r} "
                          f"(expected one of {DRIZZLE_KERNELS})")
     dev = in_data.device
     ratios = tuple(float(r) for r in pscale_ratio)
-    if dev.type == "cpu":
+    if not _launches(use_pallas, dev, "drizzle_deposit"):
         sci, wht = _plain_stack(in_data, in_wht, x_out, y_out, out_shape,
                                 pixfrac=pixfrac, pscale_ratio=ratios,
                                 kernel=kernel, per_plane=per_plane)
-        return sci, wht, torch.zeros(len(ratios), dtype=torch.int32)
-    if dev.type != "cuda":
-        raise ValueError(f"drizzle_deposit: unsupported device {dev}")
+        return sci, wht, torch.zeros(len(ratios), dtype=torch.int32,
+                                     device=sci.device)
     planes = [in_data, x_out, y_out] + ([] if in_wht is None else [in_wht])
     for t in planes:
         if (t.device != dev or t.dtype != torch.float32
@@ -127,7 +128,8 @@ def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
                           x_out: torch.Tensor, y_out: torch.Tensor,
                           out_shape: tuple[int, int], pixfrac: float = 1.0,
                           pscale_ratio=(1.0,), kernel: str = "square",
-                          per_plane: bool = False):
+                          per_plane: bool = False,
+                          use_pallas: bool | str = "auto"):
     """Deposit a stack of E input planes onto one output grid, in one
     kernel launch.
 
@@ -140,27 +142,31 @@ def drizzle_deposit_stack(in_data: torch.Tensor, in_wht: torch.Tensor | None,
     ``escaped`` is 0 by construction (the JAX package's Pallas kernel
     counts the pixels its tiles missed).
 
-    CPU tensors take the plain version. CUDA tensors (all float32,
-    contiguous, (E, H, W), on one device; ``in_wht`` may be None) launch
-    the kernel on the current stream; anything else raises. Float sums
+    CPU tensors and ``use_pallas=False`` take the plain version. CUDA
+    tensors (all float32, contiguous, (E, H, W), on one device; ``in_wht``
+    may be None) launch the kernel on the current stream; anything else
+    raises, ``use_pallas=True`` off CUDA too. Float sums
     are taken by atomics in an order that changes from run to run, so the
     result equals the plain version's to float rounding, not bit for bit.
     """
     return _deposit_stack(in_data, in_wht, x_out, y_out, out_shape, pixfrac,
-                          pscale_ratio, kernel, per_plane=per_plane)
+                          pscale_ratio, kernel, per_plane=per_plane,
+                          use_pallas=use_pallas)
 
 
 def drizzle_deposit(in_data: torch.Tensor, in_wht: torch.Tensor | None,
                     x_out: torch.Tensor, y_out: torch.Tensor,
                     out_shape: tuple[int, int], pixfrac: float = 1.0,
-                    pscale_ratio: float = 1.0, kernel: str = "square"):
+                    pscale_ratio: float = 1.0, kernel: str = "square",
+                    use_pallas: bool | str = "auto"):
     """Deposit one input plane onto an output grid: the E = 1 call of
     :func:`drizzle_deposit_stack` on (H, W) planes.
 
     Same contract as :func:`subpixal_tpu_torch.ops.drizzle.drizzle_deposit`
     plus an int32 ``escaped`` count (0 by construction): returns
-    ``(sci_acc, wht_acc, escaped)``. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise, as the stacked call does.
+    ``(sci_acc, wht_acc, escaped)``. CPU tensors and ``use_pallas=False``
+    take the plain version; CUDA tensors launch the kernel or raise, as
+    the stacked call does.
     """
     for t in (in_data, in_wht, x_out, y_out):
         if t is not None and t.dim() != 2:
@@ -168,5 +174,6 @@ def drizzle_deposit(in_data: torch.Tensor, in_wht: torch.Tensor | None,
                              f"{tuple(t.shape)}")
     sci, wht, esc = _deposit_stack(
         in_data[None], None if in_wht is None else in_wht[None], x_out[None],
-        y_out[None], out_shape, pixfrac, (pscale_ratio,), kernel)
+        y_out[None], out_shape, pixfrac, (pscale_ratio,), kernel,
+        use_pallas=use_pallas)
     return sci, wht, esc[0]

@@ -21,7 +21,7 @@ from ..ops.correlate import Displacement
 from ..ops.correlate import find_displacement as _find_displacement
 from ..ops.correlate import measure_window as _plain
 from ..ops.correlate import window_fits
-from . import LAUNCHES
+from . import LAUNCHES, _launches
 from ._build import load
 
 __all__ = ["measure_window", "find_displacement", "kernel_route", "Route"]
@@ -164,7 +164,8 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
                    img_mask: torch.Tensor | None = None, *,
                    cc_type: str = "NCC", usfac: int, nwin: int,
                    bounds: tuple[int, int, int, int],
-                   kernel: str | None = None):
+                   kernel: str | None = None,
+                   use_pallas: bool | str = "auto"):
     """Upsampled correlation window of each (ref, img) cutout pair.
 
     Same contract as :func:`subpixal_tpu_torch.ops.correlate.measure_window`:
@@ -172,10 +173,11 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
     and sampled at ``s0 + (i - nwin//2) / usfac``, and the (B,) int32
     coarse shifts in signed-lag space.
 
-    CPU tensors take the plain version. CUDA tensors (``ref``/``img``
-    contiguous float32 (B, H, W) on one device; masks of any type that
-    broadcast to that shape, or None; bool masks are read in place as
-    bytes) launch the kernel on the current stream; anything else raises.
+    CPU tensors and ``use_pallas=False`` take the plain version. CUDA
+    tensors (``ref``/``img`` contiguous float32 (B, H, W) on one device;
+    masks of any type that broadcast to that shape, or None; bool masks
+    are read in place as bytes) launch the kernel on the current stream;
+    anything else raises, ``use_pallas=True`` off CUDA too.
     Square 16, 32 and 64 cutouts take the FFT kernel, every
     other shape the mixed-radix kernel (:func:`kernel_route`); ``kernel``
     'fft' or 'mixed_radix' asks for one of them (ValueError where it does
@@ -188,11 +190,9 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
             f"unknown cc_type: {cc_type!r} (expected 'CC'|'NCC'|'ZNCC')")
     code = _kernel_code(kernel)
     dev = ref.device
-    if dev.type == "cpu":
+    if not _launches(use_pallas, dev, "measure_window"):
         return _plain(ref, img, ref_mask, img_mask, cc_type=cc_type,
                       usfac=usfac, nwin=nwin, bounds=bounds)
-    if dev.type != "cuda":
-        raise ValueError(f"measure_window: unsupported device {dev}")
     for t in (ref, img):
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous() or t.dim() != 3
@@ -241,9 +241,22 @@ def measure_window(ref: torch.Tensor, img: torch.Tensor,
     return c2, s0y, s0x
 
 
-def find_displacement(ref: torch.Tensor, img: torch.Tensor, *args,
-                      **kw) -> Displacement:
-    """:func:`subpixal_tpu_torch.ops.correlate.find_displacement` with its
-    windowed ``usfac > 1`` measurement through :func:`measure_window`:
-    kernel B3 on CUDA tensors, the plain version on CPU tensors."""
-    return _find_displacement(ref, img, *args, measure=measure_window, **kw)
+def find_displacement(ref: torch.Tensor, img: torch.Tensor,
+                      cc_type: str = "NCC", usfac: int = 1,
+                      peak_fit_box: int = 5, fit_type: str = "quadratic",
+                      ref_mask: torch.Tensor | None = None,
+                      img_mask: torch.Tensor | None = None,
+                      peak_search_box="fitbox",
+                      use_pallas: bool | str = "auto") -> Displacement:
+    """:func:`subpixal_tpu_torch.ops.correlate.find_displacement` (the
+    JAX package's ``find_displacement``, with its parameters and
+    defaults) with its windowed ``usfac > 1`` measurement through
+    :func:`measure_window` and its ``use_pallas``: kernel B3 on CUDA
+    tensors, the plain version on CPU tensors and under
+    ``use_pallas=False``; ``True`` off CUDA raises ``ValueError``."""
+    _launches(use_pallas, ref.device, "find_displacement")
+    return _find_displacement(
+        ref, img, cc_type=cc_type, usfac=usfac, peak_fit_box=peak_fit_box,
+        fit_type=fit_type, ref_mask=ref_mask, img_mask=img_mask,
+        peak_search_box=peak_search_box,
+        measure=functools.partial(measure_window, use_pallas=use_pallas))

@@ -32,6 +32,7 @@ AXIS = "cutouts"
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
+                     local_device_ids=None,
                      backend: str | None = None, **kwargs) -> bool:
     """Join this process to the default ``torch.distributed`` group.
 
@@ -45,7 +46,16 @@ def init_distributed(coordinator_address: str | None = None,
     raises; there is no fallback to another backend or to one process.
     ``kwargs`` go to ``init_process_group`` (``timeout``, ...). Returns
     True when the group is (already) initialised.
+
+    ``local_device_ids`` (the JAX package's name) is this rank's CUDA
+    device, an int or a one-element sequence: it becomes the current
+    device first, in a single-process run too, and NCCL's ``device_id``.
+    A rank drives one device, so more ids raise ``ValueError``, and so
+    does an id on a machine without CUDA. None changes nothing.
     """
+    device = _local_device(local_device_ids)
+    if device is not None:
+        torch.cuda.set_device(device)
     if dist.is_initialized():
         return True
     if coordinator_address is None:
@@ -69,10 +79,27 @@ def init_distributed(coordinator_address: str | None = None,
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     addr = (coordinator_address if "://" in coordinator_address
             else f"tcp://{coordinator_address}")
+    if device is not None and backend == "nccl":
+        kwargs.setdefault("device_id", device)
     dist.init_process_group(backend, init_method=addr,
                             world_size=int(num_processes),
                             rank=int(process_id), **kwargs)
     return True
+
+
+def _local_device(local_device_ids) -> torch.device | None:
+    """The CUDA device ``local_device_ids`` names (None for None)."""
+    if local_device_ids is None:
+        return None
+    ids = ([local_device_ids] if isinstance(local_device_ids, int)
+           else list(local_device_ids))
+    if len(ids) != 1:
+        raise ValueError(f"local_device_ids: a rank drives one device, got "
+                         f"{local_device_ids!r}")
+    if not torch.cuda.is_available():
+        raise ValueError(f"local_device_ids={local_device_ids!r} names a "
+                         "CUDA device, but CUDA is not available")
+    return torch.device("cuda", int(ids[0]))
 
 
 def process_info() -> tuple[int, int]:

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..blot import blot_measure
+from ..kernels import use_pallas as _use_pallas
 from ..kernels.measure import find_displacement
 from ..ops.correlate import Displacement
 from ..ops.fit import (LinearFitResult, iter_linear_fit_frames,
@@ -251,6 +252,7 @@ def make_sharded_align_step(
     peak_fit_box: int = 5, fit_type: str = "quadratic",
     fitgeom: str = "general", nclip: int = 3, sigma: float = 3.0,
     peak_search_box="fitbox", interp: str = "poly5",
+    use_pallas: bool | str = "auto",
 ):
     """The multi-device align iteration over a flattened (frame, source)
     cutout batch.
@@ -269,8 +271,15 @@ def make_sharded_align_step(
     per-frame fits reduce their moments over the group, so every rank
     composes the same affine update. The result's ``weights`` are
     gathered whole.
+
+    ``use_pallas`` is resolved here, on ``mesh.device``
+    (:func:`~subpixal_tpu_torch.kernels.use_pallas`): ``'auto'`` (the
+    JAX package defaults to ``False``, its Mosaic kernels being opt-in
+    there) takes B2 and B3 on CUDA, ``False`` their plain versions on
+    any device, and ``True`` off CUDA raises ``ValueError``.
     """
     E = int(n_frames)
+    _use_pallas(use_pallas, mesh.device)  # use_pallas=True off CUDA raises
 
     def step(Ms, ts, drz, cut_px, cut_py, img, msk, xy0, jac, w, frame_id):
         B = cut_px.shape[0]
@@ -285,7 +294,8 @@ def make_sharded_align_step(
         d, _ = blot_measure(
             drz, Mi, ts[fid], px, py, im, mk.to(torch.bool), interp=interp,
             cc_type=cc_type, usfac=usfac, peak_fit_box=peak_fit_box,
-            fit_type=fit_type, peak_search_box=peak_search_box)
+            fit_type=fit_type, peak_search_box=peak_search_box,
+            use_pallas=use_pallas)
         dxy = torch.stack([d.dx, d.dy], dim=-1)
         uv = pos + torch.einsum("nij,njk,nk->ni", Mi, J, dxy)
         w_eff = wl * (d.fit_ok & (d.peak > 0)).to(torch.float32)

@@ -20,8 +20,9 @@ rank of the mesh with the same arguments (the band its own).
   (:func:`halo_exchange`), the queries it owns are sampled whole by
   kernel B2 (the others clamped into the band and masked) and the values
   and the ownership-and-validity are ``all_reduce``-d: the JAX package's
-  kernel path. ``nearest`` and CPU tensors take the plain per-band
-  partial sums, ``all_reduce``-d.
+  kernel path. ``nearest``, CPU tensors, ``use_pallas=False`` and bands
+  thinner than the footprint take the plain per-band partial sums,
+  ``all_reduce``-d.
 - The cubic B-spline prefilter is an IIR along the rows; a band
   prefilters over a ``spline_halo``-row mirror-remapped halo, to
   ``|z1|**spline_halo`` (z1 = sqrt(3) - 2) of the global prefilter.
@@ -32,6 +33,11 @@ ranks sharing a card, takes CUDA tensors for them, not for
 in which each rank writes its slot.
 B1 and B2 are called through this module's ``drizzle_deposit_stack`` and
 ``sample_cutouts``, so a caller can swap in their plain versions.
+Every function that reaches a kernel takes ``use_pallas``, ``'auto'`` by
+default: the kernels per band on CUDA, the path the port's spatial align
+runs. (The JAX package defaults these to ``False``, its Mosaic kernels
+inside ``shard_map`` being opt-in.) ``False`` takes the plain versions
+on any device; ``True`` on a mesh that is not on CUDA raises.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import use_pallas as _use_pallas
 from ..kernels.blot import sample_cutouts
 from ..kernels.drizzle import drizzle_deposit_stack
 from ..ops.interp import (INTERP_OFFSETS, _axis_weights,
@@ -254,8 +261,10 @@ def make_mesh2d(n_frames: int, n_rows: int,
 # --------------------------------------------------------------------- #
 
 def _deposit_band(mesh, data, wht, x_out, y_out, out_shape, pixfrac,
-                  ratios, kernel, per_plane=False, sum_frames=False):
-    """One kernel B1 launch of an (E, H, W) stack into this rank's band
+                  ratios, kernel, per_plane=False, sum_frames=False,
+                  use_pallas="auto"):
+    """One kernel B1 launch (its plain version under ``use_pallas=False``)
+    of an (E, H, W) stack into this rank's band
     (a pscale ratio per plane): ``y - row0``, a band-sized output, and
     the rows past the logical height (the last band's padding) zeroed.
     Returns the band's (sci, wht), (Hl, Wo) or per plane (E, Hl, Wo).
@@ -269,7 +278,7 @@ def _deposit_band(mesh, data, wht, x_out, y_out, out_shape, pixfrac,
         data.contiguous(), None if wht is None else wht.contiguous(),
         x_out.contiguous(), (y_out - np.float32(row0)).contiguous(),
         (Hl, Wo), pixfrac=pixfrac, pscale_ratio=tuple(ratios),
-        kernel=kernel, per_plane=per_plane)
+        kernel=kernel, per_plane=per_plane, use_pallas=use_pallas)
     if row0 + Hl > Ho:  # the unsharded deposit drops these rows
         keep = (torch.arange(Hl, device=sci.device) + row0 < Ho).to(
             sci.dtype)[:, None]
@@ -293,7 +302,7 @@ def _ratios(pscale_ratio, E: int) -> tuple:
 def drizzle_deposit_spatial(
     mesh, in_data, in_wht, x_out, y_out, out_shape: tuple[int, int],
     pixfrac: float = 1.0, pscale_ratio=1.0, kernel: str = "square",
-    per_plane: bool = False,
+    use_pallas: bool | str = "auto", per_plane: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`~subpixal_tpu_torch.ops.drizzle.drizzle_deposit` with the
     OUTPUT accumulators row-band-sharded over ``mesh``: returns this
@@ -302,12 +311,15 @@ def drizzle_deposit_spatial(
     Every rank passes the same (whole) inputs: an (H, W) plane, or an
     (E, H, W) stack with a scalar or per-plane ``pscale_ratio``, summed
     over its planes, or with ``per_plane`` returned as (E, band_rows, Wo)
-    planes. One kernel B1 launch on CUDA (its plain version on the CPU):
-    global cells outside the band fail its bounds test, so the bands'
-    union is exactly the unsharded deposit and nothing is summed across
-    ranks. Combine elementwise and crop with :func:`gather_rows`.
+    planes. One kernel B1 launch on CUDA (its plain version on the CPU
+    and under ``use_pallas=False``): global cells outside the band fail
+    its bounds test, so the bands' union is exactly the unsharded deposit
+    and nothing is summed across ranks. Combine elementwise and crop with
+    :func:`gather_rows`. ``use_pallas`` defaults to ``'auto'`` (B1 per
+    band on CUDA), where the JAX package's defaults to ``False``.
     """
     dev = mesh.device
+    _use_pallas(use_pallas, dev)  # use_pallas=True off CUDA raises
     d = _as_f32(in_data, dev)
     stack = d.dim() == 3
     if not stack:
@@ -322,7 +334,8 @@ def drizzle_deposit_spatial(
 
     sci, wht = _deposit_band(mesh, d, st(in_wht), st(x_out), st(y_out),
                              out_shape, pixfrac, _ratios(pscale_ratio, E),
-                             kernel, per_plane=per_plane and stack)
+                             kernel, per_plane=per_plane and stack,
+                             use_pallas=use_pallas)
     return sci, wht
 
 
@@ -351,6 +364,7 @@ def _frame_block(mesh, arrays, ratios, axis: int = 0):
 def drizzle_deposit_stack_spatial(
     mesh, data, wht, x_out, y_out, out_shape: tuple[int, int],
     pixfrac: float = 1.0, pscale_ratio=1.0, kernel: str = "square",
+    use_pallas: bool | str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Deposit an (E, H, W) exposure stack over a 2-D ``(frames, rows)``
     mesh: this rank's block of the frames (E zero-padded to a multiple of
@@ -360,12 +374,15 @@ def drizzle_deposit_stack_spatial(
     only: the collective moves band-sized tiles, never the mosaic.
     ``x_out``/``y_out`` may be one (H, W) pixmap for the whole stack.
     Returns this rank's band (the same on every rank of its frames line).
+    ``use_pallas=False`` deposits with B1's plain version (``'auto'``
+    is the default here, ``False`` the JAX package's).
     """
     if len(mesh.axis_names) != 2:
         raise ValueError(
             f"drizzle_deposit_stack_spatial wants a 2-D (frames, rows) "
             f"mesh, got axes {mesh.axis_names}")
     dev = mesh.device
+    _use_pallas(use_pallas, dev)  # use_pallas=True off CUDA raises
     d = _as_f32(data, dev)
     E = d.shape[0]
     ratios = _ratios(pscale_ratio, E)
@@ -373,12 +390,13 @@ def drizzle_deposit_stack_spatial(
     xo, yo = (_as_f32(a, dev).expand(d.shape) for a in (x_out, y_out))
     (d, w, xo, yo), rl = _frame_block(mesh, (d, w, xo, yo), ratios)
     return _deposit_band(mesh, d, w, xo, yo, out_shape, pixfrac, rl, kernel,
-                         sum_frames=True)
+                         sum_frames=True, use_pallas=use_pallas)
 
 
 def drizzle_deposit_sparse_spatial(
     mesh, data, wht, x_out, y_out, out_shape: tuple[int, int],
     pixfrac: float = 1.0, pscale_ratio=1.0, kernel: str = "square",
+    use_pallas: bool | str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The band-compacted sparse deposit onto a row-sharded plane.
 
@@ -391,8 +409,11 @@ def drizzle_deposit_sparse_spatial(
     block is listed by every band its padded bbox touches; out-of-band
     cells fail each band's bounds test). On a 2-D ``(frames, rows)`` mesh
     the rank takes its block of the frames and the band's accumulators
-    are ``all_reduce``-d over the frames axis. One kernel B1 launch.
+    are ``all_reduce``-d over the frames axis. One kernel B1 launch (its
+    plain version under ``use_pallas=False``; ``'auto'`` is the default
+    here, ``False`` the JAX package's).
     """
+    _use_pallas(use_pallas, mesh.device)  # use_pallas=True off CUDA raises
     Nb = data.shape[0]
     if Nb != _n_bands(mesh):
         raise ValueError(f"band axis {Nb} != mesh rows axis {_n_bands(mesh)}")
@@ -402,7 +423,7 @@ def drizzle_deposit_sparse_spatial(
     if len(mesh.axis_names) == 2:
         arrs, ratios = _frame_block(mesh, arrs, ratios)
     return _deposit_band(mesh, *arrs, out_shape, pixfrac, ratios, kernel,
-                         sum_frames=True)
+                         sum_frames=True, use_pallas=use_pallas)
 
 
 # --------------------------------------------------------------------- #
@@ -465,7 +486,7 @@ def sample_spatial(
     mesh, plane: torch.Tensor, x, y, interp: str = "poly5",
     fill: float = 0.0, sinscl: float = 1.0,
     logical_rows: int | None = None, spline_halo: int = 32,
-    return_escaped: bool = False,
+    use_pallas: bool | str = "auto", return_escaped: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """:func:`~subpixal_tpu_torch.ops.interp.sample_image` from a
     row-sharded plane: the blot gather for mosaics larger than a device.
@@ -487,6 +508,14 @@ def sample_spatial(
     the union is exact. ``nearest`` and CPU tensors sum the bands' plain
     partials. ``interp='spline3'`` prefilters each band over a
     ``spline_halo``-row mirror-remapped halo.
+
+    ``use_pallas`` (``'auto'`` by default; the JAX package's default is
+    ``False``) decides from the shape alone, before any launch: B2 needs
+    bands of at least the footprint's rows and, for ``spline3``, a
+    ``spline_halo`` of at least the footprint. Under ``'auto'`` other
+    shapes sum the bands' plain partials, as ``False`` does on every
+    shape; ``True`` raises ``ValueError`` for them, as the JAX package
+    does, and on a mesh that is not on CUDA.
     """
     if interp not in INTERP_OFFSETS:
         raise ValueError(
@@ -508,7 +537,18 @@ def sample_spatial(
     # band) finds its whole footprint, and so does the clamped image of
     # every unowned one, with a row to spare
     halo_i = hi - lo + 1
-    use_kernel = dev.type == "cuda" and interp != "nearest"
+    pallas = _use_pallas(use_pallas, dev)
+    if pallas and use_pallas != "auto":
+        if interp == "spline3" and spline_halo < halo_i:
+            raise ValueError(f"use_pallas spline3 needs spline_halo >= "
+                             f"{halo_i}")
+        if Hl < halo_i:
+            raise ValueError(
+                f"use_pallas sample needs band_rows >= {halo_i} (the "
+                f"interpolant's footprint); got {Hl}: use more rows per "
+                "band or fewer ranks")
+    use_kernel = (pallas and interp != "nearest" and Hl >= halo_i
+                  and (interp != "spline3" or spline_halo >= halo_i))
     if interp == "spline3":
         # every extended slot's reflection must land in the rank's own
         # extended range: the halo must fit a band beside the row padding
@@ -518,14 +558,6 @@ def sample_spatial(
                 f"({Hl} - {pad}) and band_rows >= 2*pad + 1; got "
                 f"spline_halo={spline_halo}: use more rows per band or "
                 "fewer ranks")
-        if use_kernel and spline_halo < halo_i:
-            raise ValueError(f"spline3 on CUDA needs spline_halo >= "
-                             f"{halo_i}")
-    if use_kernel and Hl < halo_i:
-        raise ValueError(
-            f"sampling on CUDA needs band_rows >= {halo_i} (the "
-            f"interpolant's footprint); got {Hl}: use more rows per band "
-            "or fewer ranks")
 
     if interp == "nearest":
         xi = torch.floor(x + 0.5).long()
@@ -557,7 +589,8 @@ def sample_spatial(
         vals_b, valid_b, _ = sample_cutouts(
             ext.contiguous(), x.reshape(shape3).contiguous(),
             y.reshape(shape3).contiguous(), interp=interp, fill=0.0,
-            prefiltered=True, sinscl=sinscl, row0=row0 - halo_i)
+            prefiltered=True, sinscl=sinscl, row0=row0 - halo_i,
+            use_pallas=use_pallas)
         okb = valid_b.reshape(x.shape) & own
         red = _psum(torch.stack([
             torch.where(okb, vals_b.reshape(x.shape), 0.0),

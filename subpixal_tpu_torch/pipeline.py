@@ -134,14 +134,16 @@ def align_fits(
     Reads the exposures (multi-SCI files expand to one exposure per chip,
     :func:`load_exposures`), runs
     :func:`~subpixal_tpu_torch.align.align_images` on ``device`` with
-    ``align_kwargs``, and (by default) writes the corrected WCS keywords
+    ``align_kwargs`` (whose ``use_pallas`` the Drizzle takes too), and
+    (by default) writes the corrected WCS keywords
     into each chip's own SCI header with a HISTORY record, each file
     rewritten once (atomically). ``state_file`` also saves an
     :class:`AlignState` JSON checkpoint.
     """
     exps = load_exposures(image_fnames, ext=ext, wht_ext=wht_ext)
-    result = align_images(resample=Drizzle(exps, device=device),
-                          device=device, **align_kwargs)
+    result = align_images(resample=Drizzle(
+        exps, use_pallas=align_kwargs.get("use_pallas", "auto"),
+        device=device), device=device, **align_kwargs)
     if update_headers:
         by_file: dict[str, list] = {}
         for exp, M, t in zip(result.exposures, result.matrices,

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from .blot import (compute_pixmap, compute_pixmap_device,
                    compute_pixmap_device_stack, device_pixmap_min_pixels)
+from .kernels import use_pallas as _use_pallas
 from .kernels.drizzle import drizzle_deposit, drizzle_deposit_stack
 from .ops.drizzle import drizzle_combine
 from .ops.interp import sample_image
@@ -335,7 +336,11 @@ class Drizzle(Resample):
     package's ``Drizzle``; ``config`` takes AstroDrizzle-style keys
     (:attr:`CONFIG_KEYS`). ``device`` ('cuda' by default) holds the
     accumulators; on a CUDA device every deposit runs kernel B1, on the
-    CPU its plain version.
+    CPU its plain version. ``use_pallas`` (also a ``config`` key, kept as
+    ``self.use_pallas``, :func:`~subpixal_tpu_torch.kernels.use_pallas`
+    on ``device``): ``False`` runs the plain versions on any device, in
+    ``execute``, fast add / replace and the stages' blot-back; ``True``
+    on a device that is not CUDA raises ``ValueError`` here.
 
     ``spatial_mesh`` (a 1-D rows mesh from ``parallel.make_mesh`` or a
     2-D one from ``parallel.make_mesh2d``) row-band-shards the output:
@@ -385,7 +390,8 @@ class Drizzle(Resample):
                  output_shape: tuple[int, int] | None = None,
                  pixfrac: float = 1.0, kernel: str = "square",
                  fillval: float = 0.0, pscale: float | None = None,
-                 pscale_ratio: float = 1.0, wht_type: str = "exptime",
+                 pscale_ratio: float = 1.0,
+                 use_pallas: bool | str = "auto", wht_type: str = "exptime",
                  config: dict | None = None, device=None,
                  spatial_mesh=None):
         if spatial_mesh is not None:
@@ -398,17 +404,14 @@ class Drizzle(Resample):
         if config:
             args = dict(pixfrac=pixfrac, kernel=kernel, fillval=fillval,
                         pscale=pscale, pscale_ratio=pscale_ratio,
-                        wht_type=wht_type, use_pallas="auto")
+                        wht_type=wht_type, use_pallas=use_pallas)
             args.update(self._from_config(config, set(args)))
-            if args.pop("use_pallas") is False:
-                raise ValueError("use_pallas=False has no counterpart in the "
-                                 "port: CUDA tensors always take the CUDA "
-                                 "kernels")
             pixfrac, kernel, fillval = (args["pixfrac"], args["kernel"],
                                         args["fillval"])
             pscale, pscale_ratio, wht_type = (args["pscale"],
                                               args["pscale_ratio"],
                                               args["wht_type"])
+            use_pallas = args["use_pallas"]
         self.exposures: list[Exposure] = list(exposures or [])
         names = [e.name for e in self.exposures]
         if len(set(names)) != len(names):
@@ -422,8 +425,11 @@ class Drizzle(Resample):
         self.fillval = float(fillval)
         self.pscale = pscale
         self.pscale_ratio = float(pscale_ratio)
+        self.use_pallas = use_pallas
         self.wht_type = wht_type
         self.device = torch.device("cuda" if device is None else device)
+        # use_pallas=True off CUDA raises before any work
+        _use_pallas(use_pallas, self.device)
         self.spatial_mesh = spatial_mesh
         self._owcs = output_wcs
         self._oshape = output_shape
@@ -535,9 +541,11 @@ class Drizzle(Resample):
                   pscale_ratio=exp.wcs.pscale / self._owcs.pscale,
                   kernel=self.kernel)
         if self.spatial_mesh is None:
-            s, w, _ = drizzle_deposit(*args, **kw)
+            s, w, _ = drizzle_deposit(*args, **kw,
+                                      use_pallas=self.use_pallas)
         else:  # this rank's band
-            s, w = drizzle_deposit_spatial(self.spatial_mesh, *args, **kw)
+            s, w = drizzle_deposit_spatial(self.spatial_mesh, *args, **kw,
+                                           use_pallas=self.use_pallas)
         if scale != 1.0:
             s = s * np.float32(scale)
             w = w * np.float32(scale)
@@ -577,10 +585,11 @@ class Drizzle(Resample):
                   kernel=self.kernel, per_plane=True)
         if self.spatial_mesh is None:
             s, w, _ = drizzle_deposit_stack(data, wht, px, py, self._oshape,
-                                            **kw)
+                                            **kw, use_pallas=self.use_pallas)
         else:  # the planes of this rank's band
             s, w = drizzle_deposit_spatial(self.spatial_mesh, data, wht, px,
-                                           py, self._oshape, **kw)
+                                           py, self._oshape, **kw,
+                                           use_pallas=self.use_pallas)
         sc = torch.as_tensor(np.asarray(scales, np.float32),
                              device=self.device)[:, None, None]
         s, w = _agree(self.spatial_mesh, s * sc, w * sc)
@@ -819,7 +828,8 @@ class Drizzle(Resample):
             else:
                 blot_t, ok_t = sample_spatial(
                     self.spatial_mesh, med_t, self._dev(px), self._dev(py),
-                    interp=interp, logical_rows=Ho)
+                    interp=interp, logical_rows=Ho,
+                    use_pallas=self.use_pallas)
             if device_mode:
                 weight = (None if exp.weight is None
                           else self._dev(exp.weight))

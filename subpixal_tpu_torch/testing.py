@@ -2,7 +2,8 @@
 
 Counterpart of ``subpixal_tpu/testing.py`` (its host renderer, with the
 same numpy random draws, so both packages build the same scene from one
-seed) and ``pairwise_shift_errors``, used by the tests and by
+seed; its device renderer, on a torch device) and
+``pairwise_shift_errors``, used by the tests and by
 ``chip_smoke.py`` to assert alignment accuracy against ground truth.
 :class:`SpawnedRanks` runs one program as the ranks of a local
 ``torch.distributed`` group, as the multi-process tests and
@@ -18,6 +19,7 @@ import tempfile
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from .resample import Exposure
@@ -36,42 +38,121 @@ def simulate_stack(
     noise: float = 0.01,
     shift_scale: float = 0.5,
     pscale_as: float = 0.05,
+    star_box=None,
+    device=None,
 ) -> tuple[list[Exposure], list[tuple[float, float]]]:
     """Dithered exposures whose DATA carry true sub-pixel offsets the
     header WCS does not know about (the alignment problem).
 
     Stars are painted patch-wise (a full-frame radius test per star
-    costs minutes at 2k+ scales), at least 40 px from every edge.
+    costs minutes at 2k+ scales), at least 40 px from every edge, or
+    inside ``star_box = (x_lo, x_hi, y_lo, y_hi)`` when given (e.g. a
+    scene whose sparse-deposit live set engages).
 
     Returns ``(exposures, planted)`` with ``planted[e] = (dx, dy)`` the
     true per-exposure pointing error in pixels; only pairwise
     DIFFERENCES are recoverable (alignment is relative).
+
+    ``device`` None (or False) renders on the host, as the JAX package's
+    host renderer, draw for draw. A torch device (or its name) renders
+    the whole stack on that device, and ``True`` on the current CUDA
+    device (raising without one): the Gaussian patches scatter-added
+    into the frames there, the noise from a ``torch.Generator`` on that
+    device seeded with ``seed``, and the Exposures hold the frames as
+    tensors there, so a following ``align_images`` or ``Drizzle`` copies
+    no scene from the host. Star positions and planted shifts come from
+    the same numpy draws in every mode, so ``planted`` is identical; the
+    pixels differ by their noise (and the patches by float32 rounding:
+    the device renders them in float32, the host in float64).
     """
     rng = np.random.default_rng(seed)
     H, W = shape
     cd = (pscale_as / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
-    stars = np.stack([rng.uniform(40, W - 40, n_stars),
-                      rng.uniform(40, H - 40, n_stars)], 1)
+    lo_x, hi_x, lo_y, hi_y = (star_box if star_box is not None
+                              else (40, W - 40, 40, H - 40))
+    stars = np.stack([rng.uniform(lo_x, hi_x, n_stars),
+                      rng.uniform(lo_y, hi_y, n_stars)], 1)
     R = max(int(np.ceil(4.5 * sigma)) + 2, 9)
     pyy, pxx = np.mgrid[-R:R + 1, -R:R + 1].astype(np.float32)
     r_cut = (R - 1) ** 2
     exps, planted = [], []
     shifts = [tuple(rng.uniform(-shift_scale, shift_scale, 2))
               for _ in range(n_exp)]
+    dev = _render_device(device)
+    if dev is not None:
+        frames = _render_stack_device(shape, stars, np.asarray(shifts),
+                                      amp, sigma, noise, R, r_cut, seed,
+                                      dev)
     for e in range(n_exp):
         dx, dy = shifts[e]
         planted.append((float(dx), float(dy)))
-        img = rng.normal(0, noise, shape).astype(np.float32)
-        for x0, y0 in stars:
-            cx, cy = int(round(x0)), int(round(y0))
-            r2 = (pxx + cx - x0 - dx) ** 2 + (pyy + cy - y0 - dy) ** 2
-            img[cy - R:cy + R + 1, cx - R:cx + R + 1] += np.where(
-                r2 < r_cut, amp * np.exp(-r2 / (2 * sigma * sigma)),
-                0.0)
+        if dev is not None:
+            img = frames[e]
+        else:
+            img = rng.normal(0, noise, shape).astype(np.float32)
+            for x0, y0 in stars:
+                cx, cy = int(round(x0)), int(round(y0))
+                r2 = (pxx + cx - x0 - dx) ** 2 + (pyy + cy - y0 - dy) ** 2
+                img[cy - R:cy + R + 1, cx - R:cx + R + 1] += np.where(
+                    r2 < r_cut, amp * np.exp(-r2 / (2 * sigma * sigma)),
+                    0.0)
         wcs = TanWCS(crpix=np.array([W / 2, H / 2]),
                      crval=np.array([150.0, 2.0]), cd=cd)
         exps.append(Exposure(img, wcs, name=f"sim{e}"))
     return exps, planted
+
+
+def _render_device(device) -> torch.device | None:
+    """``simulate_stack``'s ``device``: None for a host render."""
+    if device is None or device is False:
+        return None
+    if device is True:
+        if not torch.cuda.is_available():
+            raise ValueError("simulate_stack(device=True) renders on the "
+                             "current CUDA device, and CUDA is not "
+                             "available")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def _render_stack_device(shape, stars, shifts, amp, sigma, noise, R, r_cut,
+                         seed, device) -> torch.Tensor:
+    """(E, H, W) float32 star-field frames rendered on ``device``, as the
+    JAX package's device renderer: each star's (2R+1)^2 Gaussian patch
+    (its sub-pixel offset plus the frame's planted shift, in float32)
+    scatter-added at its integer center into the flattened frames, the
+    cells off the frame dropped."""
+    E = shifts.shape[0]
+    H, W = shape
+    cx = np.round(stars[:, 0]).astype(np.int64)
+    cy = np.round(stars[:, 1]).astype(np.int64)
+    fx = torch.as_tensor((stars[:, 0] - cx).astype(np.float32), device=device)
+    fy = torch.as_tensor((stars[:, 1] - cy).astype(np.float32), device=device)
+    sh = torch.as_tensor(shifts.astype(np.float32), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    frames = torch.randn((E, H, W), generator=gen, device=device,
+                         dtype=torch.float32) * np.float32(noise)
+    off = torch.arange(-R, R + 1, device=device)
+    p = off.to(torch.float32)
+    ddx = fx[None, :] + sh[:, 0:1]                       # (E, S)
+    ddy = fy[None, :] + sh[:, 1:2]
+    r2 = ((p[None, None, None, :] - ddx[..., None, None]) ** 2
+          + (p[None, None, :, None] - ddy[..., None, None]) ** 2)
+    patch = torch.where(r2 < r_cut,
+                        np.float32(amp) * torch.exp(
+                            -r2 / np.float32(2 * sigma * sigma)),
+                        torch.zeros((), device=device))  # (E, S, P, P)
+    rows = torch.as_tensor(cy, device=device)[:, None] + off[None]  # (S, P)
+    cols = torch.as_tensor(cx, device=device)[:, None] + off[None]
+    inside = (((rows >= 0) & (rows < H))[:, :, None]
+              & ((cols >= 0) & (cols < W))[:, None, :])      # (S, P, P)
+    cell = rows[:, :, None] * W + cols[:, None, :]
+    flat = (torch.arange(E, device=device)[:, None] * (H * W)
+            + cell[inside][None])                            # (E, K)
+    frames.view(-1).index_add_(0, flat.reshape(-1),
+                               patch[:, inside].reshape(-1))
+    return frames
 
 
 def pairwise_shift_errors(shifts, planted) -> float:

@@ -24,7 +24,8 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["TanWCS", "DistGrid", "apply_tangent_affine", "tangent_homography"]
+__all__ = ["TanWCS", "DistGrid", "apply_tangent_affine", "fit_wcs_offset",
+           "tangent_homography"]
 
 
 def _tangent_basis(crval) -> "np.ndarray":
@@ -368,3 +369,13 @@ def apply_tangent_affine(
     # is also valid around this image's tangent point).
     cd_new = G @ wcs.cd
     return wcs.replace(cd=cd_new, crval=np.array([ra2, dec2]))
+
+
+def fit_wcs_offset(wcs_a: TanWCS, wcs_b: TanWCS, x, y):
+    """Pixel positions (x, y) of WCS ``a`` mapped into WCS ``b``'s frame.
+
+    The drz↔flt pairing primitive: ``a.pixel_to_world`` composed with
+    ``b.world_to_pixel`` (host numpy, as the JAX package's).
+    """
+    ra, dec = wcs_a.pixel_to_world(x, y)
+    return wcs_b.world_to_pixel(ra, dec)

@@ -143,12 +143,16 @@ def test_history_last_keeps_one_record():
         align_images(exposures=exps, device="cpu", min_sources=500)
 
 
-def test_device_mismatch_and_use_pallas_false_raise():
+def test_device_mismatch_and_use_pallas_true_off_cuda_raise():
+    """A Drizzle on another device than the align's raises, and so does
+    use_pallas=True off CUDA, as the JAX package's kernels raise off TPU.
+    (use_pallas=False runs the plain versions, held to the JAX package in
+    tests/test_torch_use_pallas.py.)"""
     exps, _ = simulate_stack(n_exp=2, shape=(96, 96), n_stars=4, seed=1)
-    with pytest.raises(ValueError, match="use_pallas"):
-        align_images(exposures=exps, device="cpu", use_pallas=False)
     with pytest.raises(ValueError, match="device"):
         align_images(resample=Drizzle(exps, device="meta"), device="cpu")
+    with pytest.raises(ValueError, match="use_pallas=True"):
+        align_images(exposures=exps, device="cpu", use_pallas=True)
 
 
 def test_cuda_device_without_index_is_the_current_device(monkeypatch):

@@ -1055,6 +1055,89 @@ def test_mesh_two_gloo_ranks_share_one_card(card):
 
 
 @pytest.mark.cuda
+def test_use_pallas_false_launches_no_kernel_on_card(card):
+    """align_images(use_pallas=False) and Drizzle(use_pallas=False) on the
+    card: no kernel launched, shifts within 1e-3 px (the slice's bar) of
+    the kernels' run and the planted shifts recovered; the kernels' run
+    still launches all three. use_pallas=True takes the kernels too."""
+    from subpixal_tpu_torch.resample import Drizzle
+
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    kw = dict(exposures=exps, device="cuda", **_MESH_KW)
+    kernels.reset_launch_counts()
+    plain = align_images(use_pallas=False, **kw)
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    kernels.reset_launch_counts()
+    forced = align_images(use_pallas=True, **kw)
+    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    one = align_images(**kw)
+    assert plain.n_iterations == one.n_iterations
+    assert np.abs(plain.shifts - one.shifts).max() < 1e-3
+    assert np.abs(forced.shifts - one.shifts).max() < 1e-3
+    assert pairwise_shift_errors(plain.shifts, planted) < 0.005
+    kernels.reset_launch_counts()
+    d = Drizzle(exps, device="cuda", use_pallas=False)
+    d.execute()
+    assert kernels.LAUNCHES["drizzle_deposit"] == 0
+    k = Drizzle(exps, device="cuda")
+    k.execute()
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1
+    assert _close(torch.tensor(d.output_sci), torch.tensor(k.output_sci))
+
+
+@pytest.mark.cuda
+def test_simulate_stack_renders_on_card(card):
+    """simulate_stack(device='cuda') and device=True: frames as float32
+    CUDA tensors, planted equal to the host render's; without noise the
+    frames within a few float32 ulps of the star amplitude of the host
+    render; the new path aligns the device scene."""
+    scene = dict(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    host, hp = simulate_stack(noise=0.0, **scene)
+    for device in ("cuda", True):
+        dev, dp = simulate_stack(noise=0.0, device=device, **scene)
+        assert dp == hp
+        for a, b in zip(dev, host):
+            assert a.data.is_cuda and a.data.dtype == torch.float32
+            assert float(np.abs(a.data.cpu().numpy() - b.data).max()) \
+                <= 8 * float(np.spacing(np.float32(25.0)))
+    exps, planted = simulate_stack(device="cuda", **scene)
+    res = align_images(exposures=exps, device="cuda", **_MESH_KW)
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+
+
+_ONE_NCCL_RANK = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from subpixal_tpu_torch.parallel import init_distributed
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+assert init_distributed(addr, world, rank, local_device_ids=[0],
+                        backend="nccl")
+t = torch.ones(3, device="cuda")
+dist.all_reduce(t)
+print("RESULT " + json.dumps(dict(
+    current=torch.cuda.current_device(), backend=dist.get_backend(),
+    sum=t.tolist())), flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_init_distributed_local_device_ids_one_nccl_rank(card):
+    """init_distributed(..., local_device_ids=[0]) for one NCCL rank: card
+    0 current before the group is set up, and the group reduces on it."""
+    import json
+
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    out = SpawnedRanks(_ONE_NCCL_RANK, 1).wait(timeout=120)[0]
+    rec = json.loads(next(ln for ln in out.splitlines()
+                          if ln.startswith("RESULT "))[7:])
+    assert rec == {"current": 0, "backend": "nccl", "sum": [1.0] * 3}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["set", "add"])
 def test_insert_cutouts_on_card_matches_cpu(card, mode):
     """Overlapping, partly and wholly off-image, masked cutouts: 'set'
@@ -1143,6 +1226,32 @@ for sinscl in (0.5, 1.5, 2.0):
         fill=-7.0, logical_rows=H))
     out[key + "_val"] = v.cpu().numpy()
     out[key + "_ok"] = ok.cpu().numpy()
+# use_pallas=False: the plain partials and B1's plain version on the card
+v, ok = count("poly5_plain", lambda: sample_spatial(
+    mesh, band, z["qx"], z["qy"], fill=-7.0, logical_rows=H,
+    use_pallas=False))
+out["poly5_plain_val"] = v.cpu().numpy()
+out["poly5_plain_ok"] = ok.cpu().numpy()
+s, w = count("stacked_plain", lambda: drizzle_deposit_spatial(
+    mesh, z["data"], z["wht"], z["x"], z["y"], (Ho, Wo), pixfrac=0.9,
+    pscale_ratio=ratios, use_pallas=False))
+out["stacked_plain_sci"] = gather_rows(s, Ho, mesh=mesh)
+# an 8-row plane: bands of 4 rows on two ranks, thinner than poly5's
+# footprint, and spline3 with a spline_halo below its footprint
+thin = shard_rows(mesh, z["thin"])
+for interp, sh in (("poly5", 32), ("poly3", 32), ("sinc", 32),
+                   ("spline3", 2)):
+    v, ok = count("thin_" + interp, lambda: sample_spatial(
+        mesh, thin, z["tqx"], z["tqy"], interp=interp, fill=-7.0,
+        spline_halo=sh))
+    out[f"thin_{interp}_val"] = v.cpu().numpy()
+    out[f"thin_{interp}_ok"] = ok.cpu().numpy()
+    try:
+        sample_spatial(mesh, thin, z["tqx"], z["tqy"], interp=interp,
+                       spline_halo=sh, use_pallas=True)
+        launches["thin_forced_" + interp] = "ran"
+    except ValueError as e:
+        launches["thin_forced_" + interp] = str(e)
 cd = (0.05 / 3600.0) * np.array([[-1.0, 0.0], [0.0, 1.0]])
 exps = [Exposure(z["exp"][e].cpu().numpy(), TanWCS(
     crpix=np.array([128.3 + 0.4 * e, 128.0 - 0.3 * e]),
@@ -1197,7 +1306,10 @@ def spatial_kernels(tmp_path_factory):
         oshape=np.asarray(oshape), ratios=np.asarray(ratios), plane=plane,
         qx=gx[None] + ox[:, None, None] + 0.37,
         qy=gy[None] + oy[:, None, None] + 0.61,
-        exp=rng.uniform(0.0, 2.0, (3, 256, 256)))
+        exp=rng.uniform(0.0, 2.0, (3, 256, 256)),
+        thin=rng.uniform(0.0, 4.0, (8, 96)),
+        tqx=gx[None] + rng.uniform(-4, 88, B)[:, None, None] + 0.37,
+        tqy=gy[None] + rng.uniform(-10, 8, B)[:, None, None] + 0.61)
     inputs = {k: np.asarray(v, np.float32 if np.asarray(v).dtype.kind == "f"
                             else None) for k, v in inputs.items()}
     path = str(root / "inputs.npz")
@@ -1280,6 +1392,69 @@ def test_sample_spatial_sinc_sinscl_matches_plain(card, spatial_kernels,
     assert torch.equal(torch.tensor(out[key + "_ok"]), ok)
     assert _close(torch.tensor(out[key + "_val"]), want)
     assert all(la[key]["blot_gather"] == 1 for la in launches)
+
+
+#: the thin plane's cases: (interp, spline_halo)
+_THIN = (("poly5", 32), ("poly3", 32), ("sinc", 32), ("spline3", 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("interp,spline_halo", _THIN)
+def test_sample_spatial_thin_bands_on_card(card, spatial_kernels, world,
+                                           interp, spline_halo):
+    """sample_spatial on an 8-row plane under the default use_pallas:
+    where a band holds the interpolant's footprint (and, for spline3, the
+    halo covers it) one B2 launch a rank, else the bands' plain partials
+    with no launch; either way validity equal to sample_image's on the
+    whole plane, and values within REL_TOL of it (spline3 on one band: of
+    the same call's CPU run, whose halo of 2 truncates the prefilter
+    alike; on two bands validity only). An
+    explicit use_pallas=True runs the shapes B2 takes and refuses the
+    others, as the JAX package's does."""
+    from subpixal_tpu_torch.parallel.sharding import Mesh
+    from subpixal_tpu_torch.parallel.spatial import sample_spatial
+
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    halo = INTERP_OFFSETS[interp][-1] - INTERP_OFFSETS[interp][0] + 1
+    fits = 8 // world >= halo and spline_halo >= halo
+    plane, qx, qy = (z[k].to(card) for k in ("thin", "tqx", "tqy"))
+    want, ok = sample_image(plane, qx, qy, interp=interp, fill=-7.0)
+    assert torch.equal(torch.tensor(out[f"thin_{interp}_ok"]), ok.cpu())
+    assert bool(ok.any())
+    if interp == "spline3":  # the halo truncates the band prefilter
+        one = Mesh(None, 0, 1, torch.device("cpu"), ("rows",))
+        want, _ = sample_spatial(one, z["thin"], z["tqx"], z["tqy"],
+                                 interp=interp, fill=-7.0, spline_halo=2)
+        if world == 2:  # two bands truncate it otherwise than one
+            want = None
+    if want is not None:
+        assert _close(torch.tensor(out[f"thin_{interp}_val"]), want.cpu())
+    for la in launches:
+        assert la["thin_" + interp]["blot_gather"] == int(fits)
+        forced = la["thin_forced_" + interp]
+        assert (forced == "ran") == fits, forced
+        assert fits or "use_pallas" in forced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_spatial_use_pallas_false_on_card(card, spatial_kernels, world):
+    """use_pallas=False: sample_spatial sums the bands' plain partials and
+    drizzle_deposit_spatial deposits by B1's plain version, with no
+    launch; both agree with the kernels' runs."""
+    z, runs = spatial_kernels
+    out, launches = runs[world]
+    assert torch.equal(torch.tensor(out["poly5_plain_ok"]),
+                       torch.tensor(out["poly5_ok"]))
+    assert _close(torch.tensor(out["poly5_plain_val"]),
+                  torch.tensor(out["poly5_val"]))
+    assert _close(torch.tensor(out["stacked_plain_sci"]),
+                  torch.tensor(out["stacked_sci"]))
+    for la in launches:
+        assert not any(la["poly5_plain"].values())
+        assert not any(la["stacked_plain"].values())
 
 
 @pytest.mark.cuda

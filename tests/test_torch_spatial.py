@@ -64,6 +64,11 @@ H, W = 100, 64       # not divisible by 4 or 8: the last band pads
 HALO = 3
 SPLINE_HALO = 9      # within band_rows - pad at every mesh here
 SINSCL = 2.0         # the rank program's sinc scale off 1
+#: a plane whose bands (4 rows at D = 2, 2 at D = 4) are thinner than
+#: poly5's 6-row footprint, and (interp, spline_halo) sampled from it:
+#: spline3's halo of 2 is below its 4-row footprint
+THIN_H = 8
+THIN = (("poly5", 32), ("poly3", 32), ("sinc", 32), ("spline3", 2))
 
 
 def _close(got, want):
@@ -141,6 +146,13 @@ def _inputs():
              st_y=np.stack([_pixmap(40, 36, ty=2.0 - k)[1]
                             for k in range(3)]))
     # queries across every band boundary and past every edge
+    # the thin plane, queried across each band boundary and past the edges
+    z.update(thin=rng.random((THIN_H, W)).astype(np.float32),
+             tqx=rng.uniform(-3, W + 2, (200,)).astype(np.float32),
+             tqy=np.concatenate([
+                 rng.uniform(-3, THIN_H + 2, (160,)),
+                 np.repeat([1.5, 2.0, 3.99, 4.0, 5.3, 6.0, 7.5, 7.0],
+                           5)]).astype(np.float32))
     z.update(qx=rng.uniform(-3, W + 2, (400,)).astype(np.float32),
              qy=np.concatenate([rng.uniform(-3, H + 2, (340,)),
                                 np.repeat([24.5, 25.0, 49.9, 50.0, 75.2],
@@ -234,6 +246,20 @@ for label, mesh in meshes.items():
                            sinscl=SINSCL, fill=-7.0, logical_rows=H)
     out[f"{label}{world}/sample_sinc_sinscl"] = v.numpy()
     out[f"{label}{world}/valid_sinc_sinscl"] = ok.numpy()
+    if label == "rows":  # bands thinner than the interpolant's footprint
+        thin = shard_rows(mesh, z["thin"])
+        for interp, sh in spec["thin"]:
+            v, ok = sample_spatial(mesh, thin, z["tqx"], z["tqy"],
+                                   interp=interp, fill=-7.0,
+                                   spline_halo=sh)
+            out[f"rows{world}/thin_{interp}"] = v.numpy()
+            out[f"rows{world}/thin_valid_{interp}"] = ok.numpy()
+            try:  # an explicit use_pallas=True raises on the CPU
+                sample_spatial(mesh, thin, z["tqx"], z["tqy"],
+                               interp=interp, spline_halo=sh,
+                               use_pallas=True)
+            except ValueError:
+                out[f"rows{world}/thin_forced_raises_{interp}"] = True
     # Drizzle(spatial_mesh=...): execute and the products
     d = Drizzle(exposures("scene"), spatial_mesh=mesh)
     d.execute()
@@ -278,6 +304,7 @@ def port(tmp_path_factory):
     scene, cd = _drizzle_scene()
     spec = dict(inputs=str(root / "inputs.npz"), out=str(root / "out"),
                 halo=HALO, spline_halo=SPLINE_HALO, kernels=KERNELS,
+                thin=THIN,
                 interps=INTERPS, cd=cd.tolist(),
                 scene=[dict(r, data=r["data"].tolist()) for r in scene],
                 cr_scene=[dict(r, data=r["data"].tolist())
@@ -355,6 +382,14 @@ def jax_runs(port):
                      sinscl=SINSCL, fill=-7.0, logical_rows=H)
     out["sample_sinc_sinscl"] = np.asarray(v)
     out["valid_sinc_sinscl"] = np.asarray(ok)
+    for D in (2, 4):  # the JAX package's default use_pallas=False
+        m = meshes[("rows", D)]
+        thin = j_shard(m, jnp.asarray(z["thin"]))
+        for interp, sh in THIN:
+            v, ok = j_sample(m, thin, z["tqx"], z["tqy"], interp=interp,
+                             fill=-7.0, spline_halo=sh)
+            out[f"rows{D}/thin_{interp}"] = np.asarray(v)
+            out[f"rows{D}/thin_valid_{interp}"] = np.asarray(ok)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for label, m in (("rows", m4), ("2x2", m22)):
@@ -481,6 +516,27 @@ def test_sample_spatial_sinc_sinscl_matches_jax(port, jax_runs, label, D):
                   jax_runs["sample_sinc_sinscl"])
     assert not _close(r[f"{label}{D}/sample_sinc_sinscl"],
                       jax_runs["sample_sinc"])
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("interp,spline_halo", THIN)
+def test_sample_spatial_thin_bands_match_jax(port, jax_runs, D, interp,
+                                             spline_halo):
+    """sample_spatial on bands thinner than the interpolant's footprint
+    (8 rows over 2 and 4 bands), and spline3 with a spline_halo below it,
+    under the default use_pallas: a result, against the JAX package's
+    default (use_pallas=False) at the same band count, with equal
+    validity and values within REL_TOL. An explicit use_pallas=True
+    raises ValueError here, off CUDA (its refusal of these shapes on the
+    card is tests/test_torch_cuda.py's)."""
+    _, result = port
+    r = result(D)
+    key = f"rows{D}/thin_"
+    np.testing.assert_array_equal(r[key + "valid_" + interp],
+                                  jax_runs[key + "valid_" + interp])
+    assert r[key + "valid_" + interp].any()
+    assert _close(r[key + interp], jax_runs[key + interp])
+    assert bool(r[key + "forced_raises_" + interp])
 
 
 @pytest.mark.parametrize("label,D", MESHES)
