@@ -154,6 +154,15 @@ failure):
     ``setup_s`` and the host-to-device copies of a profiled call, beside
     the host-rendered scene's.
 
+Every one-card align phase with the device loop (7-11, 13, 18, 19)
+checks and prints its fixed-point loop (``check_loop``): its first call,
+after the loop's graph cache is emptied, captured once as a CUDA graph
+and replayed n_iterations − 1 times; its second call (all but 19)
+served by the cached graph, replayed n_iterations times; each with at
+most ⌈n/4⌉ + 1 host reads and ``loop_compile`` in the setup breakdown.
+The host loop (12) captures nothing; the mesh and spatial paths (14-17)
+run the step eagerly, reading the host every iteration.
+
 Every align phase prints the measurement route each batch took
 (``route_name``: torch.fft at ``usfac`` 1, B3's kernel, or the full
 surface), and phases 16-17 also hold each rank's ``sample_spatial`` sinc
@@ -184,6 +193,7 @@ from __future__ import annotations
 import inspect
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -954,7 +964,67 @@ def _plain_versions():
     stack = ExitStack()
     for mod, name, fn in patches:
         stack.enter_context(mock.patch.object(mod, name, fn))
+    # a graph cached before the patches would replay the kernels, and one
+    # captured under them would replay the plain versions after
+    cold_loop()
+    stack.callback(cold_loop)
     return stack
+
+
+def cold_loop():
+    """Empty the align loop's cache of captured graphs (where the package
+    has one), so that the next call captures its own."""
+    from subpixal_tpu_torch import align as align_mod
+
+    getattr(align_mod, "_LOOP_CACHE", {}).clear()
+
+
+#: the CUDA kernel each wrapper launches once a call, by launch count: a
+#: pattern of the profiler's demangled names (PyTorch's own
+#: ``vectorized_gather_kernel`` is not B2)
+KERNEL_NAMES = {"drizzle_deposit": r"\bdeposit_tiles<",
+                "blot_gather": r"\b(gather_kernel<|nearest_kernel\()",
+                "measure_displacement": r"\bmeasure_(fft|mixed)_kernel<"}
+
+
+def check_loop(label, res, mode="graph", cached=False):
+    """The fixed-point loop of a call, by ``mode``: 'graph', a one-card
+    device loop: each entry (1, plus one a sparse self-heal) run as a
+    CUDA graph with at most ⌈n/4⌉ + 1 host reads, and ``loop_compile`` in
+    the setup breakdown; without ``cached`` (a call after
+    :func:`cold_loop`) each entry captured once, its first iteration
+    eager and the graph replayed for the others, n_iterations − entries
+    replays in all; with ``cached`` (a second call of the same shapes)
+    each entry served by the cached graph, replayed n_iterations times.
+    'eager', the device loop under a mesh: no capture, one host read an
+    iteration; 'host', the host loop: no capture. Prints what it
+    checks."""
+    bd = res.setup_breakdown
+    n = res.n_iterations
+    graphs = bd.get("loop_graphs", 0)
+    hits = bd.get("loop_graph_hits", 0)
+    reads = bd.get("loop_host_reads", 0)
+    if mode != "graph":
+        print(f"{label}: {mode} loop, {n} iterations, no graph, {reads} "
+              "host reads by the device loop")
+        if graphs or hits or "loop_compile" in bd or (
+                mode == "eager" and reads != bd.get("loop_steps")):
+            raise AssertionError(f"{label}: the {mode} loop: {bd}")
+        return
+    entries = 1 + int(bd.get("sparse_heals", 0))
+    print(f"{label}: loop as a CUDA graph: {graphs} capture(s), {hits} "
+          f"cached, {bd.get('loop_replays')} replays, {reads} host reads, "
+          f"loop_compile {bd.get('loop_compile', float('nan')):.4f} s, "
+          f"{n} iterations")
+    if ((hits, graphs) != ((entries, 0) if cached else (0, entries))
+            or bd.get("loop_replays") != n - graphs
+            or reads > entries * (-(-n // 4) + 1)
+            or "loop_compile" not in bd):
+        raise AssertionError(
+            f"{label}: the loop did not run as a "
+            f"{'cached' if cached else 'captured'} graph replayed "
+            f"n_iterations{'' if cached else ' - 1'} times with at most "
+            f"ceil(n/4) + 1 host reads an entry: {bd}")
 
 
 def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
@@ -986,6 +1056,7 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
         return device_finder(image, *a, **k)
 
     routes = []
+    cold_loop()
     kernels.reset_launch_counts()
     t0 = time.time()
     with mock.patch.object(catalogs_device, "find_sources_device",
@@ -1037,12 +1108,16 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
     if res.n_iterations != iters or not err_mpix < 10.0:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, "
                              f"error {err_mpix} mpix")
+    mode = ("host" if config.get("device_loop", "auto") is False
+            else "eager" if "mesh" in config else "graph")
+    check_loop(label, res, mode)
     # the first call in a process pays cuFFT plans and lazy kernel loads;
     # a second call shows the steady state
     warm = align_images(max_iterations=iters, **kw)
     warm_ms = 1e3 * warm.history[-1][0].iter_s
     print(f"{label}, second call: setup_s {warm.setup_s:.3f}, "
           f"{warm_ms:.3f} ms per iteration")
+    check_loop(f"{label}, second call", warm, mode, cached=True)
     print(f"{label}, second call: setup_breakdown " + json.dumps(
         {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
     # the same run forced through the plain versions on the card
@@ -1082,6 +1157,7 @@ def phase_use_pallas_false(dev):
                                    seed=11)
     kw = dict(exposures=exps, device=dev, eps_shift=1e-7, max_iterations=4,
               **NEW_PATH)
+    cold_loop()
     kernels.reset_launch_counts()
     res = align_images(use_pallas=False, **kw)
     torch.cuda.synchronize()
@@ -1105,6 +1181,8 @@ def phase_use_pallas_false(dev):
           f"setup_s {warm_k.setup_s:.3f}")
     if any(launches.values()):
         raise AssertionError(f"{label} launched {launches}")
+    check_loop(label, res)
+    check_loop(f"{label}, second call", warm, cached=True)
     if res.n_iterations != 4 or len(res.history) != len(res_p.history) \
             or not d < 1e-6:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, "
@@ -1166,6 +1244,7 @@ def phase_device_scene(dev, host_run):
         raise AssertionError(f"{label}: planted {dplanted} vs {hplanted}, "
                              f"frames {[type(e.data) for e in dexps]}")
     kw = dict(device=dev, eps_shift=1e-7, max_iterations=4, **NEW_PATH)
+    cold_loop()
     kernels.reset_launch_counts()
     res = align_images(exposures=dexps, **kw)
     torch.cuda.synchronize()
@@ -1191,6 +1270,7 @@ def phase_device_scene(dev, host_run):
     if res.n_iterations != 4 or not err_mpix < 10.0:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, fit "
                              f"error {err_mpix} mpix")
+    check_loop(label, res)
     return launches, res
 
 
@@ -1808,6 +1888,7 @@ def phase_pipeline(dev):
               f"({sum(os.path.getsize(p) for p in paths) / 2 ** 20:.1f} "
               f"MiB gzip'd) in {time.time() - t0:.2f} s")
         state = os.path.join(root, "state.json")
+        cold_loop()
         kernels.reset_launch_counts()
         t0 = time.time()
         res = align_fits(paths, state_file=state, **kw)
@@ -1833,6 +1914,7 @@ def phase_pipeline(dev):
         if res.n_iterations != 4 or not err_mpix < 10.0:
             raise AssertionError(f"pipeline path: {res.n_iterations} "
                                  f"iterations, error {err_mpix} mpix")
+        check_loop("pipeline path", res)
         missed = [(e, y, x) for e, y, x in hits
                   if res.exposures[e].weight[y, x] != 0]
         missed += [(e, y, x) for y, x in dead
@@ -1858,6 +1940,7 @@ def phase_pipeline(dev):
               f"{1e3 * warm.history[-1][0].iter_s:.3f} ms per iteration")
         print("pipeline path, second call: setup_breakdown " + json.dumps(
             {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
+        check_loop("pipeline path, second call", warm, cached=True)
         with _plain_versions():
             res_p = align_fits(copies, update_headers=False,
                                **dict(kw, max_iterations=1))
@@ -1998,20 +2081,28 @@ def profile_redrizzle(dev) -> None:
 
 def profile_paths(dev) -> None:
     """``--profile``: torch.profiler over one warm align call of each path
-    (after a warm-up call): device time by kernel, device busy time per
-    iteration, launches, the host ops that take the most host time, and
-    the collectives (the mesh path, one NCCL rank, where the imported
-    package has ``parallel``)."""
+    (after a warm-up call, and a call that captures the loop's graph
+    anew): device time by kernel, device busy time per iteration,
+    launches, the host ops that take the most host time, and the
+    collectives (the mesh path, one NCCL rank, where the imported package
+    has ``parallel``). Prints the loop's time a call (iterations plus
+    ``loop_compile``) of the capturing and the profiled call, and holds
+    the B1, B2 and B3 kernels the profiler saw to the launch counts. The
+    defaults' path runs a second time at the defaults' ``eps_shift`` and
+    ``max_iterations``, where the loop converges."""
     import importlib.util
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from subpixal_tpu_torch import kernels
     from subpixal_tpu_torch.align import align_images
     from subpixal_tpu_torch.testing import simulate_stack
 
     new = dict(fitgeom="shift", usfac=8, fit_type="gaussian")
     cells = [("defaults' path", 1.8, {}),
+             ("defaults' path, converging", 1.8,
+              dict(eps_shift=0.004, max_iterations=10)),
              ("defaults' path, host finder", 1.8,
               dict(device_catalog="host")),
              ("new path", 1.8, new), ("48² path", 3.0, new),
@@ -2025,13 +2116,15 @@ def profile_paths(dev) -> None:
         if importlib.util.find_spec("subpixal_tpu_torch.parallel.spatial"):
             cells.append(("spatial path, one NCCL band", 1.8,
                           dict(new, spatial_mesh=mesh)))
+    wrong = []
     for label, sigma, config in cells:
         exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
                                  seed=11, sigma=sigma)
         config = dict(config)
         smesh = config.pop("spatial_mesh", None)
         kw = dict(exposures=exps, device=dev, eps_shift=1e-7,
-                  max_iterations=4, **config)
+                  max_iterations=4)
+        kw.update(config)
 
         def call():
             if smesh is None:
@@ -2043,22 +2136,67 @@ def profile_paths(dev) -> None:
                 **{k: v for k, v in kw.items() if k != "exposures"})
 
         call()
+        # a call that captures its loop in a warm process, then (profiled)
+        # one served by the cached graph; a package without the cache
+        # runs both alike
+        cold_loop()
         torch.cuda.synchronize()
+        t0 = time.time()
+        cold = call()
+        torch.cuda.synchronize()
+        cold_wall = time.time() - t0
+        kernels.reset_launch_counts()
         t0 = time.time()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res = call()
             torch.cuda.synchronize()
         wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA"]
         dev_us = sum(e.self_device_time_total for e in events)
         n_launch = sum(e.count for e in events)
+        # the host's launch API calls (kernels, and whole graphs); the
+        # kernels the card ran beyond the host's kernel launches ran
+        # inside the replayed graphs
+        api = {e.key: e.count for e in prof.key_averages()
+               if e.device_type.name == "CPU" and "Launch" in e.key}
+        n_graph = sum(c for k, c in api.items() if "Graph" in k)
+        n_kern = sum(e.count for e in events
+                     if "Memcpy" not in e.key and "Memset" not in e.key)
+        # the kernels the card ran against the wrappers' launch counts
+        ran = {k: sum(e.count for e in events if re.search(pat, e.key))
+               for k, pat in KERNEL_NAMES.items()}
+
+        def loop_ms(r):  # the loop's time in a call: iterations + capture
+            return 1e3 * (r.n_iterations * r.history[-1][0].iter_s
+                          + r.setup_breakdown.get("loop_compile", 0.0))
+
+        cbd = cold.setup_breakdown
+        print(f"{label}: loop ms a call (iterations + loop_compile): "
+              f"capturing call {loop_ms(cold):.3f} ({cold.n_iterations} x "
+              f"{1e3 * cold.history[-1][0].iter_s:.3f} + "
+              f"{1e3 * cbd.get('loop_compile', 0.0):.3f}; wall "
+              f"{cold_wall:.3f} s, setup_s {cold.setup_s:.3f}), cached "
+              f"call {loop_ms(res):.3f} ({res.n_iterations} iterations, "
+              f"{res.setup_breakdown.get('loop_steps')} steps; wall "
+              f"{wall:.3f} s, profiled); kernels the profiler saw "
+              f"{json.dumps(ran)}, launch counts {json.dumps(launches)}")
+        if ran != launches:
+            wrong.append(f"{label}: the profiler saw {ran} kernel "
+                         f"launches, the counts say {launches}")
         iter_ms = 1e3 * res.history[-1][0].iter_s
         print(f"{label} (profiled call): wall {wall:.3f} s, setup_s "
               f"{res.setup_s:.3f}, {iter_ms:.3f} ms per iteration; device "
               f"kernels {dev_us / 1e3:.3f} ms in all over {n_launch} "
-              "launches")
+              f"launches; host launch API calls {sum(api.values())} "
+              f"({n_graph} of them graph launches) {json.dumps(api)}; "
+              f"kernels in graphs "
+              f"{n_kern - (sum(api.values()) - n_graph)}; "
+              "setup_breakdown " + json.dumps(
+                  {k: round(v, 4) for k, v in res.setup_breakdown.items()
+                   if k.startswith("loop_")}))
         ranked = sorted(events, key=lambda e: -e.self_device_time_total)
         # the 12 longest entries, then the three kernels and the copies
         # wherever they rank
@@ -2083,6 +2221,8 @@ def profile_paths(dev) -> None:
         import torch.distributed as dist
 
         dist.destroy_process_group()
+    if wrong:
+        raise AssertionError("; ".join(wrong))
 
 
 def main() -> int:

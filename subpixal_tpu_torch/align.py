@@ -32,10 +32,14 @@ state, and repeat until the ``eps_shift`` test passes.
   per-exposure fits, and the affine composition. Under ``wcsupdate='otf'`` the reference is re-drizzled
   before each exposure is measured, so later exposures align against
   already-corrected ones.
-* The fixed-point loop keeps the state and a preallocated history on the
-  device and reads back only ``max_shift`` each iteration; the host loop
-  (``device_loop=False``, or ``verbose``) reads each iteration's fit back
-  and records (and prints) it.
+* The fixed-point loop (:func:`_fixed_point`, the JAX package's
+  ``_build_device_loop``) keeps the state and a preallocated history on
+  the device. On one card it runs the step as a CUDA graph and reads the
+  host every :data:`READ_EVERY` iterations: the first call of a shape
+  runs its first iteration eagerly and captures the step, later calls
+  replay the cached graph (:data:`_LOOP_CACHE`). Elsewhere it reads every
+  iteration. The host loop (``device_loop=False``, or ``verbose``) reads
+  each iteration's fit back and records (and prints) it.
 * Under ``mesh=`` (the JAX package's ``_build_mesh_step``) one process
   per device runs the same call and the same :func:`_step` on its block
   (:func:`_block`): it re-drizzles its block of the frames (one B1
@@ -57,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import time
 import warnings
 from typing import Any, Sequence
@@ -73,6 +78,7 @@ from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
 from .catalogs_spatial import SpatialSourceCatalog
 from .cutout import create_primary_cutouts
+from .kernels import LAUNCHES
 from .kernels import use_pallas as _use_pallas
 from .kernels.drizzle import drizzle_deposit_stack
 from .ops.cutouts import extract_cutouts
@@ -752,6 +758,233 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
     return newM, newt, info
 
 
+#: the one-card loop's host reads: every this many iterations, and at the
+#: end of an entry (the cadence at which the device source finder reads
+#: its fixed points)
+READ_EVERY = 4
+
+#: captured loops kept for later calls (the JAX package's ``_LOOP_CACHE``):
+#: key -> :class:`_Graph`, oldest first. A key holds everything the
+#: captured step's launches depend on (the config, the device, the shapes
+#: of the step's inputs and its host-side constants), so a later call that
+#: matches copies its inputs into the entry's and replays. An entry holds
+#: its graph's memory and a copy of the inputs, so only a few are kept.
+#: A step whose functions are patched between calls must clear it.
+_LOOP_CACHE: dict = {}
+_LOOP_CACHE_MAX = 4
+
+#: one side stream a device for the loop's warm-up and capture, kept so
+#: that the allocator's blocks cached for it serve later calls
+_SIDE_STREAMS: dict = {}
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured masked step and the static buffers it reads and
+    writes: the block's tensors, the state, the loop's store; and the
+    kernels' launches one replay makes."""
+
+    graph: Any
+    block: _Block
+    Ms: torch.Tensor
+    ts: torch.Tensor
+    store: torch.Tensor
+    launches: dict
+
+
+def _block_tensors(b: _Block | None) -> tuple[list, tuple]:
+    """The tensors of ``b`` in field order (the bucket's one by one), and
+    its other fields as (name, value) pairs; none for no block."""
+    tensors, rest = [], []
+    for f in dataclasses.fields(b) if b is not None else ():
+        v = getattr(b, f.name)
+        if isinstance(v, torch.Tensor):
+            tensors.append(v)
+        elif f.name == "big" and v is not None:
+            tensors.extend(v)
+        else:
+            rest.append((f.name, v))
+    return tensors, tuple(rest)
+
+
+def _clone_block(b: _Block | None) -> _Block | None:
+    """``b`` with each tensor copied into new contiguous memory."""
+    if b is None:
+        return None
+    c = dataclasses.replace(b)
+    for f in dataclasses.fields(b):
+        v = getattr(b, f.name)
+        if isinstance(v, torch.Tensor):
+            setattr(c, f.name, v.clone(memory_format=torch.contiguous_format))
+        elif f.name == "big" and v is not None:
+            c.big = tuple(t.clone(memory_format=torch.contiguous_format)
+                          for t in v)
+    return c
+
+
+def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
+                 fields: dict, T: int, eps: float, breakdown: dict,
+                 graph_key=None, every: int | None = None):
+    """Up to ``T`` iterations of ``step(blk, Ms, ts) -> (Ms', ts', info)``
+    from the state (Ms, ts), stopping after the first whose
+    ``info['max_shift']`` is below ``eps``: the JAX package's
+    ``_build_device_loop``.
+
+    The state, an int32 iteration count, a done flag and the history
+    (``fields``: name -> (shape, dtype) of the ``info`` entries recorded
+    each iteration) live in static device buffers. Each call runs the
+    masked step: ``step`` where the loop has not ended, and where it has,
+    no change, so the iteration that converges keeps its own result. The
+    host reads the count, the flag and the history in one copy every
+    ``every`` iterations (1 by default, :data:`READ_EVERY` with a graph)
+    and at the end; between reads it only enqueues, and the steps after
+    ``done`` change nothing.
+
+    ``graph_key`` (a CUDA device; None under a mesh or a spatial mesh,
+    whose collectives are not captured) names the step's host-side
+    constants: with ``T`` > 1 the loop then runs as a CUDA graph. Where
+    :data:`_LOOP_CACHE` holds one for the key and the block's shapes, the
+    call copies its block and state into that graph's buffers and replays
+    it for every iteration. Otherwise the first iteration runs eagerly on
+    a side stream (the warm-up capture needs: kernel builds, B3's plans,
+    the cached constants, cuFFT plans and cuBLAS workspaces) on copies of
+    the block, and, unless it converged, the masked step is captured once
+    with ``torch.cuda.CUDAGraph``, replayed for the other iterations and
+    cached. A capture that fails raises. The kernels' launch counts
+    (``kernels.LAUNCHES``) leave out the capture's own wrapper calls and
+    add the graph's launches at every replay.
+
+    Adds to ``breakdown``: ``loop_steps`` (masked steps run),
+    ``loop_host_reads``, and with a graph key ``loop_compile`` (the
+    seconds spent capturing, or copying the inputs into a cached graph:
+    the JAX package's key for its loop's compile), ``loop_graphs``
+    (captures), ``loop_graph_hits`` (entries served by a cached graph)
+    and ``loop_replays``. Returns ``(Ms, ts, n_new, converged, hist,
+    iter_s)``: ``hist`` maps each field to its first ``n_new`` rows
+    (numpy), ``iter_s`` is the entry's wall time to its last read, less
+    ``loop_compile``'s share, over ``n_new``.
+    """
+    if T < 1:  # as the reference's while_loop: no iteration at all
+        return (Ms, ts, 0, False, {
+            k: torch.zeros((0,) + tuple(shape), dtype=dt).numpy()
+            for k, (shape, dt) in fields.items()}, 0.0)
+    dev = Ms.device
+    graph = graph_key is not None and T > 1
+    every = every or (READ_EVERY if graph else 1)
+    # one int32 store, [iteration count, done, history...], the float
+    # fields as their bits: one copy reads the whole loop state
+    sizes = [T * math.prod(shape) for shape, _ in fields.values()]
+
+    def views(s):
+        out, o = {}, 2
+        for (k, (shape, dt)), n in zip(fields.items(), sizes):
+            v = s[o:o + n]
+            out[k] = (v if dt == torch.int32 else v.view(dt)).view(
+                (T,) + tuple(shape))
+            o += n
+        return out
+
+    t0 = time.time()
+    tensors, rest = _block_tensors(blk)
+    key = graph and (graph_key, dev, T, float(eps), tuple(fields.items()),
+                     rest, tuple((t.shape, t.dtype) for t in tensors))
+    hit = _LOOP_CACHE.pop(key, None) if graph else None
+    if hit is not None:  # refresh its place, then copy this call in
+        _LOOP_CACHE[key] = hit
+        for dst, src in zip(_block_tensors(hit.block)[0], tensors):
+            dst.copy_(src)
+        hit.Ms.copy_(Ms)
+        hit.ts.copy_(ts)
+        hit.store.zero_()
+        blk, Ms, ts, store = hit.block, hit.Ms, hit.ts, hit.store
+    else:
+        if graph:
+            blk = _clone_block(blk)
+        store = torch.zeros(2 + sum(sizes), dtype=torch.int32, device=dev)
+        Ms, ts = Ms.clone(), ts.clone()
+    hist = views(store)
+
+    def masked():
+        newM, newt, info = step(blk, Ms, ts)
+        live = store[1:2] == 0
+        at = store[0:1].long()
+        for k, buf in hist.items():
+            new = torch.where(live, info[k].to(buf.dtype),
+                              buf.index_select(0, at)[0])
+            buf.index_copy_(0, at, new.reshape((1,) + buf.shape[1:]))
+        Ms.copy_(torch.where(live, newM, Ms))
+        ts.copy_(torch.where(live, newt, ts))
+        store[1:2] |= (live & (info["max_shift"] < eps)).to(torch.int32)
+        store[0:1] += live.to(torch.int32)
+
+    def replay(g):
+        def run():
+            g.graph.replay()
+            for k, n in g.launches.items():
+                LAUNCHES[k] += n
+        return run
+
+    compile_s, captured = 0.0, 0
+    steps = reads = 0
+    h = None
+    if hit is not None:
+        compile_s = time.time() - t0
+        run = replay(hit)
+    elif graph:
+        side = _SIDE_STREAMS.get(dev)
+        if side is None:
+            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            masked()
+        torch.cuda.synchronize(dev)
+        steps = 1
+        h = store.to("cpu", copy=True)
+        reads = 1
+        if not bool(h[1]):
+            t_c = time.time()
+            g = torch.cuda.CUDAGraph()
+            before = dict(LAUNCHES)
+            try:
+                # capture_begin/end, not torch.cuda.graph: that context
+                # also collects garbage and empties the allocator's cache
+                with torch.cuda.stream(side):
+                    g.capture_begin()
+                    try:
+                        masked()
+                    finally:
+                        g.capture_end()
+            finally:
+                per_graph = {k: LAUNCHES[k] - n for k, n in before.items()}
+                LAUNCHES.update(before)
+            entry = _Graph(g, blk, Ms, ts, store, per_graph)
+            _LOOP_CACHE[key] = entry
+            while len(_LOOP_CACHE) > _LOOP_CACHE_MAX:
+                _LOOP_CACHE.pop(next(iter(_LOOP_CACHE)))
+            compile_s = time.time() - t_c
+            captured = 1
+            run = replay(entry)
+    else:
+        run = masked
+    while h is None or not (steps == T or bool(h[1])):
+        run()
+        steps += 1
+        if steps == T or steps % every == 0:
+            h = store.to("cpu", copy=True)
+            reads += 1
+    n_new = int(h[0])
+    iter_s = (time.time() - t0 - compile_s) / max(n_new, 1)
+    out = {"loop_steps": steps, "loop_host_reads": reads}
+    if graph:
+        out.update(loop_compile=compile_s, loop_graphs=captured,
+                   loop_graph_hits=int(hit is not None),
+                   loop_replays=steps - (hit is None))
+    for k, v in out.items():
+        breakdown[k] = breakdown.get(k, 0) + v
+    return (Ms.clone(), ts.clone(), n_new, bool(h[1]),
+            {k: v[:n_new].numpy() for k, v in views(h).items()}, iter_s)
+
+
 def _canon(dev) -> torch.device:
     """``dev`` with its index: a CUDA device named without one is the
     current device (under a mesh, this rank's card)."""
@@ -1386,10 +1619,10 @@ def align_images(
         else:
             hist[-1] = recs
 
-    def step(Ms, ts):
-        """One iteration from state (Ms, ts): on this device, or over the
-        mesh's ranks."""
-        return _step(cfg, out_shape, cut_shape, big_hw, blk, Ms, ts,
+    def step(b, Ms, ts):
+        """One iteration of block ``b`` from state (Ms, ts): on this
+        device, or over the mesh's ranks."""
+        return _step(cfg, out_shape, cut_shape, big_hw, b, Ms, ts,
                      mesh=mesh, track_corr=sparse is not None,
                      spatial=spatial)
 
@@ -1403,8 +1636,11 @@ def align_images(
         dev_loop = False
 
     # ------------------------------------------------------------------ #
-    # fixed-point iteration. The device loop keeps the state and history
-    # on the device and reads back only max_shift each iteration; the
+    # fixed-point iteration. The device loop (_fixed_point) keeps the
+    # state and history on the device; on one card it replays a CUDA
+    # graph of the step and reads them back every READ_EVERY iterations,
+    # elsewhere (the CPU; a mesh's or a spatial mesh's collectives, which
+    # gloo cannot capture) it calls the step and reads every iteration. The
     # host loop reads each iteration's fit back, records it, polices the
     # sparse live set and then tests eps_shift. A sparse self-heal
     # re-enters from the current state (convergence reached on stale
@@ -1413,34 +1649,25 @@ def align_images(
     T = int(cfg.max_iterations)
     Ms = torch.eye(2, dtype=torch.float32, device=dev).repeat(E, 1, 1)
     ts = torch.zeros((E, 2), dtype=torch.float32, device=dev)
-    z = dict(device=dev)
-    eps = np.float32(cfg.eps_shift)
     hist: list[list[ImageAlignInfo]] = []
     fit_keys = ("G_M", "G_t", "rms", "rmse", "mae", "nmatches", "escaped")
+    f32, i32 = torch.float32, torch.int32
+    fields = dict(G_M=((E, 2, 2), f32), G_t=((E, 2), f32),
+                  rms=((E, 2), f32), rmse=((E,), f32), mae=((E,), f32),
+                  nmatches=((E,), i32), escaped=((E,), i32))
+    if sparse is not None:
+        fields["max_corr"] = ((), f32)
     n_iter = 0
     converged = False
+    # one card: the loop as a CUDA graph, keyed by what the step's
+    # launches depend on beyond its block's shapes
+    graph_key = (repr(cfg), out_shape, cut_shape, big_hw,
+                 sparse is not None, torch.get_float32_matmul_precision()) \
+        if dev.type == "cuda" and mesh is None and spatial is None else None
     while dev_loop:
-        hist_d = dict(
-            G_M=torch.zeros((T, E, 2, 2), **z),
-            G_t=torch.zeros((T, E, 2), **z), rms=torch.zeros((T, E, 2), **z),
-            rmse=torch.zeros((T, E), **z), mae=torch.zeros((T, E), **z),
-            nmatches=torch.zeros((T, E), dtype=torch.int32, **z),
-            escaped=torch.zeros((T, E), dtype=torch.int32, **z))
-        if sparse is not None:
-            hist_d["max_corr"] = torch.zeros((T,), **z)
-        n_new = 0
-        converged = False
-        t_it = time.time()
-        for it in range(T):
-            Ms, ts, info = step(Ms, ts)
-            for k, buf in hist_d.items():
-                buf[it] = info[k]
-            n_new += 1
-            if info["max_shift"].item() < eps:
-                converged = True
-                break
-        iter_s = (time.time() - t_it) / max(n_new, 1)
-        h_np = {k: v[:n_new].cpu().numpy() for k, v in hist_d.items()}
+        Ms, ts, n_new, converged, h_np, iter_s = _fixed_point(
+            step, blk, Ms, ts, fields, T, cfg.eps_shift, setup_breakdown,
+            graph_key)
         for it in range(n_new):
             record(make_recs(n_iter + it,
                              {k: h_np[k][it] for k in fit_keys}, iter_s))
@@ -1452,7 +1679,7 @@ def align_images(
         healed = False
         for _ in range(T):
             t_it = time.time()
-            Ms, ts, info = step(Ms, ts)
+            Ms, ts, info = step(blk, Ms, ts)
             h = {k: info[k].cpu().numpy() for k in fit_keys}
             recs = make_recs(n_iter, h, time.time() - t_it)  # incl. the read
             n_iter += 1

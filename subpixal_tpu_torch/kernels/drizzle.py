@@ -50,12 +50,13 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _plane_params(kernel: str, pixfrac: float, ratios: tuple, device: str):
     """Per-plane parameters (K, half, norm, half2, sigma2, s, reach, 0) as
     a device f32 tensor, and each warp's shared-memory window in cells:
     the largest strip footprint of the planes, (2·r + K + slack) by
-    (128·r + K + slack) cells for ratio r (the pixmap's scale)."""
+    (128·r + K + slack) cells for ratio r (the pixmap's scale). Never
+    evicted: the align loop's cached CUDA graph reads it by address."""
     rows, cap = [], 1
     for r in ratios:
         half = 0.5 * pixfrac * r

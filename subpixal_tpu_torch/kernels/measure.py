@@ -102,13 +102,14 @@ def kernel_route(B: int, H: int, W: int, nwin: int, bounds,
                  torch.cuda.current_device())[0]
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _consts(H: int, W: int, usfac: int, nwin: int, device: str):
     """Twiddle tables and window kernels, built in float64 and cast to f32
     (as ``_consts`` of the JAX kernel): ``cos, sin(2πj/H)`` then
     ``cos, sin(2πj/W)``; the (nwin, H) kernel ``exp(2πi f_u t_i / H)``;
     the (nwin, W//2+1) kernel ``exp(2πi f_v t_j / W)`` times the hermitian
-    fold weights over H·W, with ``t_i = (i - nwin//2) / usfac``."""
+    fold weights over H·W, with ``t_i = (i - nwin//2) / usfac``. Never
+    evicted: the align loop's cached CUDA graph reads them by address."""
     Wr = W // 2 + 1
     ph = 2.0 * np.pi * np.arange(H) / H
     pw = 2.0 * np.pi * np.arange(W) / W

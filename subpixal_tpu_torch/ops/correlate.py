@@ -23,6 +23,7 @@ such that ``img[y, x] ≈ ref[y - dy, x - dx]``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -79,10 +80,13 @@ def _normalize(a: torch.Tensor, mask, cc_type: str) -> torch.Tensor:
         f"unknown cc_type: {cc_type!r} (expected 'CC'|'NCC'|'ZNCC')")
 
 
+@functools.lru_cache(maxsize=None)
 def _hermitian_weights(W: int, device) -> torch.Tensor:
     """(W//2+1,) fold weights: interior half-spectrum columns count twice
     (their conjugates are the missing half), v=0 and an even W's Nyquist
-    column once."""
+    column once. Built once per (W, device) and never evicted: a copy from
+    the host on every call could not be captured in a CUDA graph, and a
+    cached graph reads it by address."""
     wv = np.full((W // 2 + 1,), 2.0, np.float32)
     wv[0] = 1.0
     if W % 2 == 0:
@@ -148,8 +152,9 @@ def _us_dft_kernel(s0: torch.Tensor, tfrac: torch.Tensor, nfreq: int,
     reduced in exact int32 arithmetic, so float32 only ever sees phases
     of a few cycles."""
     dev = tfrac.device
-    f_np = np.rint(np.fft.fftfreq(period) * period).astype(np.int32)[:nfreq]
-    f = torch.as_tensor(f_np, device=dev)
+    # the signed FFT frequencies, built on the device (no host copy)
+    k = torch.arange(nfreq, dtype=torch.int32, device=dev)
+    f = torch.where(k < (period + 1) // 2, k, k - period)
     int_ph = torch.remainder(f[None, :] * s0[:, None].to(torch.int32), period)
     int_ph = int_ph.to(torch.float32) / period                    # (B, U)
     frac_ph = (f.to(torch.float32)[None, :] / period) * tfrac[:, None]

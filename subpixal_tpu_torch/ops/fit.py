@@ -77,7 +77,9 @@ def _solve_from_moments(sw, sx, su, sxx, sux, fitgeom: str):
     elif fitgeom == "general":
         tr = Sxx[..., 0, 0] + Sxx[..., 1, 1]
         Sxx = Sxx + (1e-10 * tr)[..., None, None] * eye + 1e-12 * eye
-        M = Sux @ torch.linalg.inv(Sxx)
+        # inv_ex: inv without its error check, a host read that a CUDA
+        # graph of the align step could not capture (Sxx is regularised)
+        M = Sux @ torch.linalg.inv_ex(Sxx).inverse
     else:
         raise ValueError(f"unknown fitgeom: {fitgeom!r} "
                          "(expected 'shift'|'rscale'|'general')")

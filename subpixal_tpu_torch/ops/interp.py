@@ -10,6 +10,7 @@ False validity mask.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -63,6 +64,17 @@ def _bspline3_weights(t: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _bspline3_powers(K: int, dtype, device) -> torch.Tensor:
+    """(K,) powers of the cubic B-spline pole, the causal recursion's
+    initial sum, built once per (K, dtype, device) and never evicted: a
+    copy from the host on every call could not be captured in a CUDA
+    graph, and a cached graph reads it by address."""
+    z = _BSPLINE3_POLE
+    return torch.tensor([z ** k for k in range(K)], dtype=dtype,
+                        device=device)
+
+
 def _bspline3_prefilter_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Exact cubic B-spline coefficients along ``axis``: the causal and
     anticausal first-order recursions (pole ``z``, gain 6, mirror
@@ -75,8 +87,7 @@ def _bspline3_prefilter_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
         return torch.movedim(x, -1, axis)
     x = x * 6.0
     K = min(N, _BSPLINE3_HORIZON)
-    zk = torch.tensor([z ** k for k in range(K)], dtype=x.dtype,
-                      device=x.device)
+    zk = _bspline3_powers(K, x.dtype, x.device)
     cp = torch.empty_like(x)
     cp[..., 0] = x[..., :K] @ zk
     for n in range(1, N):
@@ -163,7 +174,7 @@ def sample_image(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     flat = image.to(torch.float32).reshape(-1)
     x = x.to(torch.float32)
     y = y.to(torch.float32)
-    fill_t = torch.tensor(fill, dtype=torch.float32, device=x.device)
+    fill_t = torch.full((), fill, dtype=torch.float32, device=x.device)
 
     if interp == "nearest":
         # floor(x+0.5): the reference's (int)(x+0.5), not banker's rounding

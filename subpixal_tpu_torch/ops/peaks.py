@@ -57,6 +57,14 @@ def _power_tables(n: int, k: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _power_tables_on(n: int, k: int, dtype, device) -> torch.Tensor:
+    """:func:`_power_tables` as a ``dtype`` tensor on ``device``, built
+    once and never evicted: a copy from the host on every call could not
+    be captured in a CUDA graph, and a cached graph reads it by address."""
+    return torch.as_tensor(_power_tables(n, k), dtype=dtype, device=device)
+
+
 def _solve_spd_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve for tiny static n via an unrolled Cholesky."""
     n = A.shape[-1]
@@ -97,9 +105,8 @@ def _fit_moments(data, z, w, iy, ix, k):
     r0 = torch.clamp(iy - half, 0, n - k)
     c0 = torch.clamp(ix - half, 0, m - k)
     dt, dev = z.dtype, z.device
-    TR = torch.as_tensor(_power_tables(n, k), dtype=dt, device=dev)
-    TC = TR if m == n else torch.as_tensor(_power_tables(m, k), dtype=dt,
-                                           device=dev)
+    TR = _power_tables_on(n, k, dt, dev)
+    TC = TR if m == n else _power_tables_on(m, k, dt, dev)
     oh_r = (r0[:, None] == torch.arange(n - k + 1, device=dev)[None]).to(dt)
     oh_c = (c0[:, None] == torch.arange(m - k + 1, device=dev)[None]).to(dt)
     RY = (oh_r @ TR).reshape(B, 5, n)   # y^q * rowmask

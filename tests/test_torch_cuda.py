@@ -17,10 +17,13 @@ exactly. B3's two kernels sum their own FFTs where the plain version runs
 exactly.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from subpixal_tpu_torch import align as align_mod
 from subpixal_tpu_torch import align_images, find_displacement, kernels
 from subpixal_tpu_torch.kernels.blot import sample_cutouts
 from subpixal_tpu_torch.align import _compact_blocks
@@ -682,8 +685,12 @@ def test_align_goes_through_kernels(card):
     kernels.reset_launch_counts()
     res = align_images(exposures=exps, device="cuda", max_iterations=6)
     # B1: one launch for the initial drizzle (the stacked execute keeps
-    # each exposure's planes), then the whole stack once per iteration
-    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + res.n_iterations
+    # each exposure's planes), then the whole stack once per step of the
+    # loop: its iterations, and the replays after convergence up to the
+    # loop's next read of the host, which change nothing
+    steps = res.setup_breakdown["loop_steps"]
+    assert res.n_iterations <= steps <= res.n_iterations + 3
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + steps
     assert kernels.LAUNCHES["blot_gather"] > 0
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
     # the CPU run takes the device finder too ('auto' takes it on CUDA)
@@ -704,13 +711,213 @@ def test_new_path_goes_through_all_kernels(card):
     kernels.reset_launch_counts()
     res = align_images(device="cuda", max_iterations=6, **kw)
     assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
-    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + res.n_iterations
+    # once per step of the loop, as test_align_goes_through_kernels
+    steps = res.setup_breakdown["loop_steps"]
+    assert res.n_iterations <= steps <= res.n_iterations + 3
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1 + steps
     assert "cutout_pixmaps" in res.setup_breakdown
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
     cpu = align_images(device="cpu", max_iterations=1,
                        device_catalog="device", **kw)
     for a, b in zip(res.history[0], cpu.history[0]):
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
+_GRAPH_PATHS = {"defaults": dict(),
+                "new": dict(fitgeom="shift", usfac=8, fit_type="gaussian"),
+                "otf": dict(fitgeom="shift", usfac=8, fit_type="gaussian",
+                            wcsupdate="otf")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(_GRAPH_PATHS))
+def test_graph_loop_matches_host_loop_on_card(card, path):
+    """The device loop on one card captures the step once and replays it:
+    n_iterations − 1 replays, B1 1 + per-iteration × n_iterations (the
+    capture's own wrapper calls left out, each replay's added), at most
+    ⌈n/4⌉ + 1 host reads, ``loop_compile`` in the breakdown. A second
+    call of the same shapes replays the cached graph n_iterations times
+    under the same rule. Every iteration of both within 1e-4 px of the
+    host loop at equal n_iterations."""
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    # eps_shift 0 never passes: every call runs its 6 iterations
+    kw = dict(exposures=exps, device="cuda", max_iterations=6,
+              eps_shift=0.0, **_GRAPH_PATHS[path])
+    per_iter = 3 if path == "otf" else 1
+    align_mod._LOOP_CACHE.clear()
+    runs = []
+    for call in ("capture", "cached"):
+        kernels.reset_launch_counts()
+        res = align_images(**kw)
+        launches = dict(kernels.LAUNCHES)
+        bd = res.setup_breakdown
+        n = res.n_iterations
+        assert n == 6 and not res.converged
+        if call == "capture":  # the first iteration eager, then replays
+            assert bd["loop_graphs"] == 1 and bd["loop_graph_hits"] == 0
+            assert bd["loop_replays"] == n - 1
+            assert bd["loop_compile"] > 0
+        else:  # the cached graph replayed for every iteration
+            assert bd["loop_graphs"] == 0 and bd["loop_graph_hits"] == 1
+            assert bd["loop_replays"] == n
+        assert bd["loop_steps"] == n
+        assert bd["loop_host_reads"] <= -(-n // 4) + 1
+        assert launches["drizzle_deposit"] == 1 + per_iter * n
+        assert launches["blot_gather"] == per_iter * n
+        assert launches["measure_displacement"] == (
+            0 if path == "defaults" else per_iter * n)
+        assert pairwise_shift_errors(res.shifts, planted) < 0.005
+        runs.append(res)
+    host = align_images(device_loop=False, **kw)
+    assert host.n_iterations == n and "loop_graphs" not in \
+        host.setup_breakdown
+    for res in runs:
+        for ra, rb in zip(res.history, host.history):
+            for a, b in zip(ra, rb):
+                assert a.nmatches == b.nmatches
+                assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_graph_loop_on_sparse_deposit_and_use_pallas_false(card):
+    """The compacted deposit and the plain versions (``use_pallas=False``,
+    no launch) are captured too; both follow the host loop within 1e-4
+    px."""
+    for kw in (dict(exposures=_wide_scene(), fitgeom="shift", usfac=8,
+                    fit_type="gaussian", cutout_shape=(64, 64),
+                    min_sources=3, sparse_deposit=True),
+               dict(exposures=simulate_stack(n_exp=3, shape=(256, 256),
+                                             n_stars=12, seed=5)[0],
+                    use_pallas=False, **_MESH_KW)):
+        kw = dict(kw, device="cuda", max_iterations=4, eps_shift=0.0)
+        align_mod._LOOP_CACHE.clear()
+        kernels.reset_launch_counts()
+        res = align_images(**kw)
+        launches = dict(kernels.LAUNCHES)
+        assert res.setup_breakdown["loop_replays"] == 3
+        if kw.get("use_pallas") is False:
+            assert not any(launches.values()), launches
+        else:
+            assert res.setup_breakdown["sparse_live_frac"] < 0.85
+            assert launches["drizzle_deposit"] == 1 + 4
+        host = align_images(device_loop=False, **kw)
+        for ra, rb in zip(res.history, host.history):
+            for a, b in zip(ra, rb):
+                assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_step_reads_nothing_from_the_host_on_card(card, monkeypatch):
+    """Every op of the align step is capturable: one eager step under
+    ``torch.cuda.set_sync_debug_mode('error')`` (which raises on any
+    synchronising call) on the new path, as the loop's warm-up runs it."""
+    real = align_mod._step
+    calls = []
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(1)
+        return out
+
+    monkeypatch.setattr(align_mod, "_step", strict)
+    align_mod._LOOP_CACHE.clear()  # a cached graph would not call _step
+    exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    res = align_images(exposures=exps, device="cuda", **_MESH_KW)
+    assert calls and res.setup_breakdown["loop_graphs"] == 1
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_runs_nothing_eagerly(card):
+    """A step that reads the host runs eagerly once (the warm-up), then
+    its capture raises: nothing retries it eagerly or on the CPU, nothing
+    is cached, and the launch counts keep none of the capture's wrapper
+    calls."""
+    from subpixal_tpu_torch.align import _fixed_point
+
+    calls = []
+
+    def step(b, Ms, ts):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        bad = float(ts.sum().item())  # a host read
+        kernels.LAUNCHES["drizzle_deposit"] += 1  # as a wrapper would
+        return Ms, ts + bad, dict(max_shift=ts.sum() + 1.0)
+
+    align_mod._LOOP_CACHE.clear()
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        _fixed_point(step, None, torch.eye(2, device=card)[None],
+                     torch.zeros(1, 2, device=card), {}, 6, 1e-3, {},
+                     ("failing step",))
+    torch.cuda.synchronize()
+    assert calls == [False, True]
+    assert kernels.LAUNCHES["drizzle_deposit"] == 1
+    assert not align_mod._LOOP_CACHE
+
+
+@pytest.mark.cuda
+def test_loop_converged_in_its_eager_step_captures_nothing(card):
+    """A loop whose first (eager) iteration converges reads the host once
+    and returns: no capture, no replay, nothing cached."""
+    from subpixal_tpu_torch.align import _fixed_point
+
+    calls = []
+
+    def step(b, Ms, ts):
+        calls.append(1)
+        return Ms, ts + 1.0, dict(max_shift=ts.sum())
+
+    align_mod._LOOP_CACHE.clear()
+    bd = {}
+    *_, n, done, _, _ = _fixed_point(
+        step, None, torch.eye(2, device=card)[None],
+        torch.zeros(1, 2, device=card), {}, 6, 1e-3, bd, ("step",))
+    assert (n, done, len(calls)) == (1, True, 1)
+    assert bd == dict(loop_steps=1, loop_host_reads=1, loop_compile=0.0,
+                      loop_graphs=0, loop_graph_hits=0, loop_replays=0)
+    assert not align_mod._LOOP_CACHE
+
+
+@pytest.mark.cuda
+def test_replayed_launches_match_the_profiler_on_card(card):
+    """The launch counts a cached graph's replays add equal the kernels
+    the card ran: over one warm call (every iteration a replay),
+    ``torch.profiler`` counts as many B1, B2 and B3 kernels as
+    ``kernels.LAUNCHES``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    kw = dict(exposures=exps, device="cuda", max_iterations=6,
+              eps_shift=0.0, **_GRAPH_PATHS["new"])
+    align_mod._LOOP_CACHE.clear()
+    align_images(**kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = align_images(**kw)
+        torch.cuda.synchronize()
+    assert res.setup_breakdown["loop_graph_hits"] == 1
+    assert res.setup_breakdown["loop_replays"] == 6
+    ran = {k: 0 for k in kernels.LAUNCHES}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        for k, pat in _KERNEL_NAMES.items():
+            if re.search(pat, e.key):
+                ran[k] += e.count
+    assert ran == dict(kernels.LAUNCHES), (ran, kernels.LAUNCHES)
+
+
+#: the CUDA kernel each wrapper launches once a call: a pattern of the
+#: profiler's demangled names (PyTorch's own ``vectorized_gather_kernel``
+#: is not B2)
+_KERNEL_NAMES = {"drizzle_deposit": r"\bdeposit_tiles<",
+                 "blot_gather": r"\b(gather_kernel<|nearest_kernel\()",
+                 "measure_displacement": r"\bmeasure_(fft|mixed)_kernel<"}
 
 
 def _wide_scene(E=2, shape=(512, 1024), ns=8, seed=13):
