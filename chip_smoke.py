@@ -110,8 +110,10 @@ failure):
     with phase 7's checks: B1 once at setup and once an iteration over
     all 8 local frames, B2 and B3 once an iteration, the device finder
     run, fit error under 10 mpix, the first iteration within 1e-3 px of
-    the same run through the plain versions, a warm second call; and its
-    shifts within 5e-4 px of phase 9's run without a mesh;
+    the same run through the plain versions, a warm second call (the
+    loop's cached graph, collectives and all), a call with capture
+    turned off; and its shifts within 5e-4 px of phase 9's run without a
+    mesh;
 15. the mesh path, two ranks sharing the card: the same configuration in
     two processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one
     card), which only load the kernels phase 2 built: each rank's B1 once
@@ -134,7 +136,9 @@ failure):
     measurement); the band-local finder (a spy) run on the card; fit
     error under 10 mpix; the first iteration within 1e-3 px of the same
     run through the plain versions. The ranks' shifts equal, and within
-    2e-3 px of phase 9's. Each run prints cold and warm ms per iteration,
+    2e-3 px of phase 9's; the NCCL band's loop captured, cached and held
+    to its run with capture off. Each run prints cold and warm ms per
+    iteration,
     ``setup_s`` with its breakdown and the rank's memory peak;
 17. the spatial 4k path: ``bench.py``'s 4 × 4096², 80-star, seed-23
     scene on two gloo ranks sharing the card for 2 iterations, with phase
@@ -154,14 +158,21 @@ failure):
     ``setup_s`` and the host-to-device copies of a profiled call, beside
     the host-rendered scene's.
 
-Every one-card align phase with the device loop (7-11, 13, 18, 19)
-checks and prints its fixed-point loop (``check_loop``): its first call,
-after the loop's graph cache is emptied, captured once as a CUDA graph
-and replayed n_iterations − 1 times; its second call (all but 19)
-served by the cached graph, replayed n_iterations times; each with at
-most ⌈n/4⌉ + 1 host reads and ``loop_compile`` in the setup breakdown.
-The host loop (12) captures nothing; the mesh and spatial paths (14-17)
-run the step eagerly, reading the host every iteration.
+Every align phase with the device loop (7-11, 13, 18, 19, and on NCCL
+ranks and bands 14, 16's first part and ``--cards N``) checks and prints
+its fixed-point loop (``check_loop``): its first call, after the loop's
+graph cache is emptied (or on a new process group), captured once as a
+CUDA graph, under a mesh with its collectives, and replayed n_iterations
+− 1 times; its second call (all but 19) served by the cached graph,
+replayed n_iterations times; each with at most ⌈n/4⌉ + 1 host reads
+(under a mesh the ranks' agreement to capture or replay among them) and
+``loop_compile`` in the setup breakdown. The NCCL phases also run the
+call once with capture turned off (``eager_loop``: the masked step
+eagerly, the parent's loop), to which the captured loop's every
+iteration is held within 1e-4 px with equal iterations and
+``nmatches``. The host loop (12) captures nothing; the gloo ranks and
+bands (15, 16's second part, 17) run the masked step eagerly, with at
+most ⌈n/4⌉ + 1 host reads; every rank of a mesh runs as many steps.
 
 Every align phase prints the measurement route each batch took
 (``route_name``: torch.fft at ``usfac`` 1, B3's kernel, or the full
@@ -987,44 +998,125 @@ KERNEL_NAMES = {"drizzle_deposit": r"\bdeposit_tiles<",
                 "measure_displacement": r"\bmeasure_(fft|mixed)_kernel<"}
 
 
-def check_loop(label, res, mode="graph", cached=False):
-    """The fixed-point loop of a call, by ``mode``: 'graph', a one-card
-    device loop: each entry (1, plus one a sparse self-heal) run as a
-    CUDA graph with at most ⌈n/4⌉ + 1 host reads, and ``loop_compile`` in
-    the setup breakdown; without ``cached`` (a call after
-    :func:`cold_loop`) each entry captured once, its first iteration
-    eager and the graph replayed for the others, n_iterations − entries
-    replays in all; with ``cached`` (a second call of the same shapes)
-    each entry served by the cached graph, replayed n_iterations times.
-    'eager', the device loop under a mesh: no capture, one host read an
-    iteration; 'host', the host loop: no capture. Prints what it
-    checks."""
-    bd = res.setup_breakdown
-    n = res.n_iterations
+def check_loop(label, bd, n, mode="graph", cached=False):
+    """The fixed-point loop of a call (``bd``: its setup breakdown, ``n``:
+    its iterations), by ``mode``: 'graph', a one-card device loop, and
+    'nccl', the device loop under a mesh whose collectives NCCL runs (the
+    ranks' agreement to capture or replay is one of its reads): each
+    entry (1, plus one a sparse self-heal) run as a CUDA graph with at
+    most ⌈n/4⌉ + 1 host reads, and ``loop_compile`` in the setup
+    breakdown; without ``cached`` (a call after :func:`cold_loop`, or on
+    a new group) each entry captured once, its first iteration eager and
+    the graph replayed for the others, n_iterations − entries replays in
+    all; with ``cached`` (a second call of the same shapes) each entry
+    served by the cached graph, replayed n_iterations times. 'eager', the
+    device loop under a gloo mesh (or with capture turned off): no
+    capture, at most ⌈n/4⌉ + 1 host reads an entry; 'host', the host
+    loop: no capture. Prints what it checks."""
     graphs = bd.get("loop_graphs", 0)
     hits = bd.get("loop_graph_hits", 0)
     reads = bd.get("loop_host_reads", 0)
-    if mode != "graph":
+    entries = 1 + int(bd.get("sparse_heals", 0))
+    cap = entries * (-(-n // 4) + 1)
+    if mode not in ("graph", "nccl"):
         print(f"{label}: {mode} loop, {n} iterations, no graph, {reads} "
-              "host reads by the device loop")
+              f"host reads and {bd.get('loop_steps')} steps by the device "
+              "loop")
         if graphs or hits or "loop_compile" in bd or (
-                mode == "eager" and reads != bd.get("loop_steps")):
+                mode == "eager" and not 0 < reads <= cap):
             raise AssertionError(f"{label}: the {mode} loop: {bd}")
         return
-    entries = 1 + int(bd.get("sparse_heals", 0))
-    print(f"{label}: loop as a CUDA graph: {graphs} capture(s), {hits} "
-          f"cached, {bd.get('loop_replays')} replays, {reads} host reads, "
-          f"loop_compile {bd.get('loop_compile', float('nan')):.4f} s, "
-          f"{n} iterations")
+    how = " with its NCCL collectives" if mode == "nccl" else ""
+    print(f"{label}: loop as a CUDA graph{how}: {graphs} capture(s), "
+          f"{hits} cached, {bd.get('loop_replays')} "
+          f"replays, {reads} host reads, loop_compile "
+          f"{bd.get('loop_compile', float('nan')):.4f} s, {n} iterations")
     if ((hits, graphs) != ((entries, 0) if cached else (0, entries))
             or bd.get("loop_replays") != n - graphs
-            or reads > entries * (-(-n // 4) + 1)
-            or "loop_compile" not in bd):
+            or reads > cap or "loop_compile" not in bd):
         raise AssertionError(
             f"{label}: the loop did not run as a "
             f"{'cached' if cached else 'captured'} graph replayed "
             f"n_iterations{'' if cached else ' - 1'} times with at most "
             f"ceil(n/4) + 1 host reads an entry: {bd}")
+
+
+def eager_loop():
+    """A context under which the align loop captures nothing (the private
+    ``capture`` argument of ``align._fixed_point``): under a mesh, the
+    masked step run eagerly at the same cadence, the parent's loop."""
+    import functools
+
+    from subpixal_tpu_torch import align as align_mod
+
+    return mock.patch.object(align_mod, "_fixed_point", functools.partial(
+        align_mod._fixed_point, capture=False))
+
+
+def loop_mode(mesh) -> str:
+    """check_loop's mode for the device loop under ``mesh``."""
+    import torch.distributed as dist
+
+    return ("nccl" if dist.get_backend(mesh.group()) == "nccl"
+            else "eager")
+
+
+def check_eager(label, res, eager):
+    """The captured mesh loop (``res``) against the same call with capture
+    turned off (``eager``): every iteration's shifts within 1e-4 px (the
+    host-vs-device bar), equal iterations and ``nmatches``."""
+    d = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
+            for ra, rb in zip(res.history, eager.history)
+            for a, b in zip(ra, rb))
+    print(f"{label}: captured vs eager mesh loop: max |dshift| {d:.3e} px, "
+          f"{res.n_iterations} / {eager.n_iterations} iterations; eager "
+          f"{1e3 * eager.history[-1][0].iter_s:.3f} ms per iteration")
+    if (not d < 1e-4 or res.n_iterations != eager.n_iterations
+            or len(res.history) != len(eager.history)
+            or any(a.nmatches != b.nmatches
+                   for ra, rb in zip(res.history, eager.history)
+                   for a, b in zip(ra, rb))):
+        raise AssertionError(f"{label}: the captured loop differs from the "
+                             f"eager one by {d} px")
+    return d
+
+
+def eager_record(label, eager, res):
+    """A rank's record of its call with capture turned off (None: not
+    run), held to its captured call ``res`` (:func:`check_eager`)."""
+    if eager is None:
+        return None
+    return dict(n_iterations=eager.n_iterations,
+                diff=check_eager(label, res, eager),
+                iter_ms=1e3 * eager.history[-1][0].iter_s,
+                setup_breakdown=eager.setup_breakdown)
+
+
+def check_loop_record(label, r):
+    """check_loop on a rank's record: its first call (captured under NCCL:
+    a new process or group), its second (cached), and under NCCL its
+    call with capture turned off (eager, held to the first by
+    :func:`check_eager` in the rank)."""
+    mode = r["loop_mode"]
+    check_loop(label, r["setup_breakdown"], r["n_iterations"], mode)
+    check_loop(f"{label}, second call", r["warm_setup_breakdown"],
+               r["warm_n_iterations"], mode, cached=True)
+    if mode == "nccl":
+        e = r["eager"]
+        check_loop(f"{label}, capture off", e["setup_breakdown"],
+                   e["n_iterations"], "eager")
+        print(f"{label}: captured vs eager mesh loop: max |dshift| "
+              f"{e['diff']:.3e} px; eager {e['iter_ms']:.3f} ms per "
+              "iteration")
+
+
+def check_ranks_loop(label, recs):
+    """Every rank of a mesh ran as many masked steps as every other, in
+    each of its calls (the ranks' collectives stay in step)."""
+    for key in ("setup_breakdown", "warm_setup_breakdown"):
+        steps = [r[key].get("loop_steps") for r in recs]
+        if len(set(steps)) != 1:
+            raise AssertionError(f"{label}: the ranks ran {steps} steps")
 
 
 def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
@@ -1109,15 +1201,22 @@ def phase_align(dev, label, expect, sigma=1.8, measured=None, iters=4,
         raise AssertionError(f"{label}: {res.n_iterations} iterations, "
                              f"error {err_mpix} mpix")
     mode = ("host" if config.get("device_loop", "auto") is False
-            else "eager" if "mesh" in config else "graph")
-    check_loop(label, res, mode)
+            else loop_mode(config["mesh"]) if "mesh" in config else "graph")
+    check_loop(label, res.setup_breakdown, res.n_iterations, mode)
     # the first call in a process pays cuFFT plans and lazy kernel loads;
     # a second call shows the steady state
     warm = align_images(max_iterations=iters, **kw)
     warm_ms = 1e3 * warm.history[-1][0].iter_s
     print(f"{label}, second call: setup_s {warm.setup_s:.3f}, "
           f"{warm_ms:.3f} ms per iteration")
-    check_loop(f"{label}, second call", warm, mode, cached=True)
+    check_loop(f"{label}, second call", warm.setup_breakdown,
+               warm.n_iterations, mode, cached=True)
+    if mode == "nccl":  # the parent's loop: the masked step, eagerly
+        with eager_loop():
+            eager = align_images(max_iterations=iters, **kw)
+        check_loop(f"{label}, capture off", eager.setup_breakdown,
+                   eager.n_iterations, "eager")
+        check_eager(label, res, eager)
     print(f"{label}, second call: setup_breakdown " + json.dumps(
         {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
     # the same run forced through the plain versions on the card
@@ -1181,8 +1280,9 @@ def phase_use_pallas_false(dev):
           f"setup_s {warm_k.setup_s:.3f}")
     if any(launches.values()):
         raise AssertionError(f"{label} launched {launches}")
-    check_loop(label, res)
-    check_loop(f"{label}, second call", warm, cached=True)
+    check_loop(label, res.setup_breakdown, res.n_iterations)
+    check_loop(f"{label}, second call", warm.setup_breakdown,
+               warm.n_iterations, cached=True)
     if res.n_iterations != 4 or len(res.history) != len(res_p.history) \
             or not d < 1e-6:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, "
@@ -1270,7 +1370,7 @@ def phase_device_scene(dev, host_run):
     if res.n_iterations != 4 or not err_mpix < 10.0:
         raise AssertionError(f"{label}: {res.n_iterations} iterations, fit "
                              f"error {err_mpix} mpix")
-    check_loop(label, res)
+    check_loop(label, res.setup_breakdown, res.n_iterations)
     return launches, res
 
 
@@ -1336,7 +1436,8 @@ def spy(image, *a, **k):
     return finder(image, *a, **k)
 
 
-from chip_smoke import _plain_versions, route_spy
+from chip_smoke import (_plain_versions, eager_loop, eager_record, loop_mode,
+                        route_spy)
 
 routes = []
 kernels.reset_launch_counts()
@@ -1348,6 +1449,10 @@ torch.cuda.synchronize()
 wall = time.time() - t0
 launches = dict(kernels.LAUNCHES)
 warm = align_images(**kw)
+eager = None
+if loop_mode(mesh) == "nccl":  # the same call with capture turned off
+    with eager_loop():
+        eager = align_images(**kw)
 # the first iteration forced through the kernels' plain versions on the
 # card: B1 on this rank's frames, B2 and B3 on its block of the cutout rows
 
@@ -1363,7 +1468,10 @@ print("RESULT " + json.dumps(dict(
     nmatches=res.history[0][0].nmatches, setup_s=res.setup_s,
     iter_ms=1e3 * res.history[-1][0].iter_s, warm_setup_s=warm.setup_s,
     warm_iter_ms=1e3 * warm.history[-1][0].iter_s,
-    setup_breakdown=warm.setup_breakdown)), flush=True)
+    loop_mode=loop_mode(mesh), setup_breakdown=res.setup_breakdown,
+    warm_n_iterations=warm.n_iterations,
+    warm_setup_breakdown=warm.setup_breakdown, eager=eager_record(
+        f"rank {rank}", eager, res))), flush=True)
 """
 
 
@@ -1393,9 +1501,10 @@ def phase_mesh_ranks(ref, world=2, backend="gloo", device="cuda:0"):
               f"{r['iter_ms']:.3f} ms per iteration, wall {r['wall']:.2f} "
               f"s; second call setup_s {r['warm_setup_s']:.3f}, "
               f"{r['warm_iter_ms']:.3f} ms per iteration")
-        print(f"{label}, rank {r['rank']}, second call: "
-              "setup_breakdown " + json.dumps(
-                  {k: round(v, 4) for k, v in r["setup_breakdown"].items()}))
+        for key in ("setup_breakdown", "warm_setup_breakdown"):
+            print(f"{label}, rank {r['rank']}, {key}: " + json.dumps(
+                {k: round(v, 4) for k, v in r[key].items()}))
+        check_loop_record(f"{label}, rank {r['rank']}", r)
         la = r["launches"]
         if (la["drizzle_deposit"] != 1 + n or la["blot_gather"] != n
                 or la["measure_displacement"] != n or n != 4):
@@ -1413,6 +1522,7 @@ def phase_mesh_ranks(ref, world=2, backend="gloo", device="cuda:0"):
             raise AssertionError(f"{label}: rank {r['rank']}'s first "
                                  "iteration differs from the plain run by "
                                  f"{r['plain_diff']} px")
+    check_ranks_loop(label, recs)
     if any(r["shifts"] != recs[0]["shifts"] for r in recs):
         raise AssertionError(f"{label}: the ranks returned different shifts")
     d = float(np.abs(np.asarray(recs[0]["shifts"])
@@ -1468,6 +1578,7 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
                             **dict(kw, **over))
 
     routes = []
+    cold_loop()
     torch.cuda.synchronize(mesh.device)
     torch.cuda.reset_peak_memory_stats(mesh.device)
     kernels.reset_launch_counts()
@@ -1482,11 +1593,17 @@ def spatial_run(mesh, scene: str, iters: int) -> dict:
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(mesh.device)
     warm = run()
+    eager = None
+    if loop_mode(mesh) == "nccl":  # the same call with capture turned off
+        with eager_loop():
+            eager = run()
     with _plain_versions():
         res_p = run(max_iterations=1)
     plain_diff = max(float(np.hypot(*np.subtract(a.shift, b.shift)))
                      for a, b in zip(res.history[0], res_p.history[0]))
     return dict(
+        loop_mode=loop_mode(mesh), warm_n_iterations=warm.n_iterations,
+        eager=eager_record(repr(mesh), eager, res),
         sinc=spatial_sinc_check(mesh, shape), thin=spatial_thin_check(mesh),
         routes=sorted(set(routes)),
         device=str(mesh.device), mesh=repr(mesh), launches=launches,
@@ -1635,6 +1752,7 @@ def _check_spatial(label, recs, iters, ref=None, sparse=False):
             raise AssertionError(f"{label}: {r['mesh']}'s sample_spatial "
                                  f"sinc disagrees: {r['sinc']}")
         _check_thin(label, r)
+        check_loop_record(f"{label}, {r['mesh']}", r)
         if (n != iters or la["drizzle_deposit"] != 1 + n
                 or la["blot_gather"] != n or la["measure_displacement"] != n):
             raise AssertionError(f"{label}: {r['mesh']} launched {la} in "
@@ -1653,6 +1771,7 @@ def _check_spatial(label, recs, iters, ref=None, sparse=False):
             raise AssertionError(f"{label}: the band-local sparse deposit "
                                  f"did not engage: {r['setup_breakdown']}, "
                                  f"B1 on {r['b1_shapes']}")
+    check_ranks_loop(label, recs)
     if any(r["shifts"] != recs[0]["shifts"] for r in recs):
         raise AssertionError(f"{label}: the ranks returned different shifts")
     if ref is not None:
@@ -1914,7 +2033,7 @@ def phase_pipeline(dev):
         if res.n_iterations != 4 or not err_mpix < 10.0:
             raise AssertionError(f"pipeline path: {res.n_iterations} "
                                  f"iterations, error {err_mpix} mpix")
-        check_loop("pipeline path", res)
+        check_loop("pipeline path", res.setup_breakdown, res.n_iterations)
         missed = [(e, y, x) for e, y, x in hits
                   if res.exposures[e].weight[y, x] != 0]
         missed += [(e, y, x) for y, x in dead
@@ -1940,7 +2059,8 @@ def phase_pipeline(dev):
               f"{1e3 * warm.history[-1][0].iter_s:.3f} ms per iteration")
         print("pipeline path, second call: setup_breakdown " + json.dumps(
             {k: round(v, 4) for k, v in warm.setup_breakdown.items()}))
-        check_loop("pipeline path, second call", warm, cached=True)
+        check_loop("pipeline path, second call", warm.setup_breakdown,
+                   warm.n_iterations, cached=True)
         with _plain_versions():
             res_p = align_fits(copies, update_headers=False,
                                **dict(kw, max_iterations=1))

@@ -758,18 +758,20 @@ def _step(cfg: AlignConfig, out_shape, cut_shape, big_shape, b: _Block,
     return newM, newt, info
 
 
-#: the one-card loop's host reads: every this many iterations, and at the
-#: end of an entry (the cadence at which the device source finder reads
-#: its fixed points)
+#: the device loop's host reads on a card and under a mesh: every this
+#: many iterations, and at the end of an entry (the cadence at which the
+#: device source finder reads its fixed points)
 READ_EVERY = 4
 
 #: captured loops kept for later calls (the JAX package's ``_LOOP_CACHE``):
 #: key -> :class:`_Graph`, oldest first. A key holds everything the
 #: captured step's launches depend on (the config, the device, the shapes
-#: of the step's inputs and its host-side constants), so a later call that
-#: matches copies its inputs into the entry's and replays. An entry holds
-#: its graph's memory and a copy of the inputs, so only a few are kept.
-#: A step whose functions are patched between calls must clear it.
+#: of the step's inputs and its host-side constants; under a mesh its
+#: process groups, their backend, the rank and the mesh's axes), so a
+#: later call that matches copies its inputs into the entry's and
+#: replays. An entry holds its graph's memory and a copy of the inputs,
+#: so only a few are kept. A step whose functions are patched between
+#: calls must clear it.
 _LOOP_CACHE: dict = {}
 _LOOP_CACHE_MAX = 4
 
@@ -781,8 +783,10 @@ _SIDE_STREAMS: dict = {}
 @dataclasses.dataclass
 class _Graph:
     """One captured masked step and the static buffers it reads and
-    writes: the block's tensors, the state, the loop's store; and the
-    kernels' launches one replay makes."""
+    writes: the block's tensors, the state, the loop's store; the
+    kernels' launches one replay makes; and under a mesh the process
+    groups whose communicators its collectives run on (held, so that a
+    group's identity in the key is never another group's)."""
 
     graph: Any
     block: _Block
@@ -790,6 +794,53 @@ class _Graph:
     ts: torch.Tensor
     store: torch.Tensor
     launches: dict
+    groups: tuple = ()
+
+
+def _mesh_groups(mesh) -> tuple:
+    """The distinct process groups of a mesh: the whole group and the
+    line of each axis."""
+    out = []
+    for g in [mesh.group()] + [mesh.group(a) for a in mesh.axis_names]:
+        if all(g is not o for o in out):
+            out.append(g)
+    return tuple(out)
+
+
+def _group_alive(group) -> bool:
+    """Whether ``group`` is still a process group of this process (not
+    destroyed)."""
+    try:
+        dist.get_backend(group)
+    except (ValueError, RuntimeError):
+        return False
+    return True
+
+
+def _capturable(mesh) -> bool:
+    """Whether a CUDA graph can hold a mesh's collectives: NCCL's are
+    kernels on the card; gloo's go through the host."""
+    return all(dist.get_backend(g) == "nccl" for g in _mesh_groups(mesh))
+
+
+def _mesh_key(mesh) -> tuple:
+    """A mesh's part of a loop's cache key: its groups (by identity; an
+    entry holds them), their backend, this rank, and the axes."""
+    groups = _mesh_groups(mesh)
+    return (tuple(id(g) for g in groups),
+            tuple(str(dist.get_backend(g)) for g in groups), mesh.rank,
+            tuple(mesh.shape.items()))
+
+
+def _all_ranks_hold(held: bool, mesh, device) -> bool:
+    """Whether every rank of ``mesh`` holds the loop's graph: one MIN
+    ``all_reduce`` of the ranks' flags, read on the host. Every rank then
+    replays, or every rank captures: a rank that captured while the
+    others replayed would run an eager step's collectives against their
+    graphs' and hang or desynchronise the group."""
+    flag = torch.full((1,), int(held), dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group())
+    return bool(flag.item())
 
 
 def _block_tensors(b: _Block | None) -> tuple[list, tuple]:
@@ -824,7 +875,8 @@ def _clone_block(b: _Block | None) -> _Block | None:
 
 def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
                  fields: dict, T: int, eps: float, breakdown: dict,
-                 graph_key=None, every: int | None = None):
+                 graph_key=None, every: int | None = None, mesh=None,
+                 capture: bool = True):
     """Up to ``T`` iterations of ``step(blk, Ms, ts) -> (Ms', ts', info)``
     from the state (Ms, ts), stopping after the first whose
     ``info['max_shift']`` is below ``eps``: the JAX package's
@@ -836,30 +888,39 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
     masked step: ``step`` where the loop has not ended, and where it has,
     no change, so the iteration that converges keeps its own result. The
     host reads the count, the flag and the history in one copy every
-    ``every`` iterations (1 by default, :data:`READ_EVERY` with a graph)
-    and at the end; between reads it only enqueues, and the steps after
-    ``done`` change nothing.
+    ``every`` iterations and at the end: :data:`READ_EVERY` with a graph
+    or a ``mesh`` (the mesh the step's collectives run over: ``mesh=``'s
+    or a spatial mesh), else 1 (one device, no graph). Between reads it
+    only enqueues, and the steps after ``done`` change nothing; under a
+    mesh every rank enqueues the same steps, so the ranks' collectives
+    stay in step.
 
-    ``graph_key`` (a CUDA device; None under a mesh or a spatial mesh,
-    whose collectives are not captured) names the step's host-side
-    constants: with ``T`` > 1 the loop then runs as a CUDA graph. Where
-    :data:`_LOOP_CACHE` holds one for the key and the block's shapes, the
-    call copies its block and state into that graph's buffers and replays
-    it for every iteration. Otherwise the first iteration runs eagerly on
-    a side stream (the warm-up capture needs: kernel builds, B3's plans,
-    the cached constants, cuFFT plans and cuBLAS workspaces) on copies of
-    the block, and, unless it converged, the masked step is captured once
-    with ``torch.cuda.CUDAGraph``, replayed for the other iterations and
-    cached. A capture that fails raises. The kernels' launch counts
-    (``kernels.LAUNCHES``) leave out the capture's own wrapper calls and
-    add the graph's launches at every replay.
+    ``graph_key`` (a CUDA device's loop: the step's host-side constants)
+    runs the loop as a CUDA graph when ``T`` > 1, ``capture`` holds and
+    there is no mesh or its groups are NCCL's (gloo's collectives go
+    through the host and cannot be captured: such a mesh runs the masked
+    step eagerly). Where :data:`_LOOP_CACHE` holds a graph for the key
+    and the block's shapes, the call copies its block and state into
+    that graph's buffers and replays it for every iteration. Otherwise
+    the first iteration runs eagerly on a side stream (the warm-up
+    capture needs: kernel builds, B3's plans, the cached constants,
+    cuFFT plans, cuBLAS workspaces and the groups' NCCL communicators) on
+    copies of the block, and, unless it converged, the masked step is
+    captured once with ``torch.cuda.CUDAGraph``, its collectives with
+    it, replayed for the other iterations and cached. Under a mesh the
+    ranks first agree (:func:`_all_ranks_hold`: one read) to replay or
+    to capture together, and that read stands in for the one after the
+    eager step, so a capture follows it whatever it gave. A capture that
+    fails raises. The kernels' launch counts (``kernels.LAUNCHES``)
+    leave out the capture's own wrapper calls and add the graph's
+    launches at every replay.
 
     Adds to ``breakdown``: ``loop_steps`` (masked steps run),
-    ``loop_host_reads``, and with a graph key ``loop_compile`` (the
-    seconds spent capturing, or copying the inputs into a cached graph:
-    the JAX package's key for its loop's compile), ``loop_graphs``
-    (captures), ``loop_graph_hits`` (entries served by a cached graph)
-    and ``loop_replays``. Returns ``(Ms, ts, n_new, converged, hist,
+    ``loop_host_reads``, and with a graph ``loop_compile`` (the seconds
+    spent capturing, or copying the inputs into a cached graph: the JAX
+    package's key for its loop's compile), ``loop_graphs`` (captures),
+    ``loop_graph_hits`` (entries served by a cached graph) and
+    ``loop_replays``. Returns ``(Ms, ts, n_new, converged, hist,
     iter_s)``: ``hist`` maps each field to its first ``n_new`` rows
     (numpy), ``iter_s`` is the entry's wall time to its last read, less
     ``loop_compile``'s share, over ``n_new``.
@@ -869,8 +930,9 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
             k: torch.zeros((0,) + tuple(shape), dtype=dt).numpy()
             for k, (shape, dt) in fields.items()}, 0.0)
     dev = Ms.device
-    graph = graph_key is not None and T > 1
-    every = every or (READ_EVERY if graph else 1)
+    graph = (graph_key is not None and T > 1 and capture
+             and (mesh is None or _capturable(mesh)))
+    every = every or (READ_EVERY if graph or mesh is not None else 1)
     # one int32 store, [iteration count, done, history...], the float
     # fields as their bits: one copy reads the whole loop state
     sizes = [T * math.prod(shape) for shape, _ in fields.values()]
@@ -887,8 +949,20 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
     t0 = time.time()
     tensors, rest = _block_tensors(blk)
     key = graph and (graph_key, dev, T, float(eps), tuple(fields.items()),
-                     rest, tuple((t.shape, t.dtype) for t in tensors))
-    hit = _LOOP_CACHE.pop(key, None) if graph else None
+                     rest, tuple((t.shape, t.dtype) for t in tensors),
+                     None if mesh is None else _mesh_key(mesh))
+    steps = reads = 0
+    hit = None
+    if graph:
+        # entries whose groups were destroyed can never match again
+        for k in [k for k, e in _LOOP_CACHE.items()
+                  if not all(map(_group_alive, e.groups))]:
+            del _LOOP_CACHE[k]
+        hit = _LOOP_CACHE.pop(key, None)
+        if mesh is not None:
+            reads = 1
+            if not _all_ranks_hold(hit is not None, mesh, dev):
+                hit = None  # every rank captures anew
     if hit is not None:  # refresh its place, then copy this call in
         _LOOP_CACHE[key] = hit
         for dst, src in zip(_block_tensors(hit.block)[0], tensors):
@@ -925,7 +999,6 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
         return run
 
     compile_s, captured = 0.0, 0
-    steps = reads = 0
     h = None
     if hit is not None:
         compile_s = time.time() - t0
@@ -937,19 +1010,23 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             masked()
+        # nothing in flight (no collective either) when the capture begins
         torch.cuda.synchronize(dev)
         steps = 1
-        h = store.to("cpu", copy=True)
-        reads = 1
-        if not bool(h[1]):
+        if mesh is None:
+            h = store.to("cpu", copy=True)
+            reads += 1
+        if h is None or not bool(h[1]):
             t_c = time.time()
             g = torch.cuda.CUDAGraph()
             before = dict(LAUNCHES)
             try:
                 # capture_begin/end, not torch.cuda.graph: that context
-                # also collects garbage and empties the allocator's cache
+                # also collects garbage and empties the allocator's cache.
+                # thread_local: the CUDA calls of other threads (NCCL's
+                # watchdog queries its events) do not end this capture
                 with torch.cuda.stream(side):
-                    g.capture_begin()
+                    g.capture_begin(capture_error_mode="thread_local")
                     try:
                         masked()
                     finally:
@@ -957,7 +1034,8 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
             finally:
                 per_graph = {k: LAUNCHES[k] - n for k, n in before.items()}
                 LAUNCHES.update(before)
-            entry = _Graph(g, blk, Ms, ts, store, per_graph)
+            entry = _Graph(g, blk, Ms, ts, store, per_graph,
+                           () if mesh is None else _mesh_groups(mesh))
             _LOOP_CACHE[key] = entry
             while len(_LOOP_CACHE) > _LOOP_CACHE_MAX:
                 _LOOP_CACHE.pop(next(iter(_LOOP_CACHE)))
@@ -1637,10 +1715,10 @@ def align_images(
 
     # ------------------------------------------------------------------ #
     # fixed-point iteration. The device loop (_fixed_point) keeps the
-    # state and history on the device; on one card it replays a CUDA
-    # graph of the step and reads them back every READ_EVERY iterations,
-    # elsewhere (the CPU; a mesh's or a spatial mesh's collectives, which
-    # gloo cannot capture) it calls the step and reads every iteration. The
+    # state and history on the device; on a card it replays a CUDA graph
+    # of the step (and of its collectives, where NCCL runs them) and reads
+    # them back every READ_EVERY iterations; under a gloo mesh it calls
+    # the step at that cadence, and on one CPU it reads every iteration. The
     # host loop reads each iteration's fit back, records it, polices the
     # sparse live set and then tests eps_shift. A sparse self-heal
     # re-enters from the current state (convergence reached on stale
@@ -1659,15 +1737,16 @@ def align_images(
         fields["max_corr"] = ((), f32)
     n_iter = 0
     converged = False
-    # one card: the loop as a CUDA graph, keyed by what the step's
-    # launches depend on beyond its block's shapes
+    # on a card the loop runs as a CUDA graph (under a mesh, where its
+    # collectives are NCCL's), keyed by what the step's launches depend on
+    # beyond its block's shapes and the mesh
     graph_key = (repr(cfg), out_shape, cut_shape, big_hw,
                  sparse is not None, torch.get_float32_matmul_precision()) \
-        if dev.type == "cuda" and mesh is None and spatial is None else None
+        if dev.type == "cuda" else None
     while dev_loop:
         Ms, ts, n_new, converged, h_np, iter_s = _fixed_point(
             step, blk, Ms, ts, fields, T, cfg.eps_shift, setup_breakdown,
-            graph_key)
+            graph_key, mesh=spatial if mesh is None else mesh)
         for it in range(n_new):
             record(make_recs(n_iter + it,
                              {k: h_np[k][it] for k in fit_keys}, iter_s))

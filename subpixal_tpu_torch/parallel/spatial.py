@@ -568,7 +568,7 @@ def sample_spatial(
         yi0 = torch.floor(y).long()
         valid = ((xi0 + lo >= 0) & (xi0 + hi < W)
                  & (yi0 + lo >= 0) & (yi0 + hi < Hg))
-    fill_t = torch.tensor(fill, dtype=torch.float32, device=dev)
+    fill_t = torch.full((), fill, dtype=torch.float32, device=dev)
 
     if use_kernel:
         if interp == "spline3":

@@ -1216,6 +1216,124 @@ def test_mesh_one_nccl_rank_on_card_matches_one_device(card):
     assert pairwise_shift_errors(res.shifts, planted) < 0.005
 
 
+def _eager_loop():
+    """The align loop with capture turned off (``_fixed_point``'s private
+    ``capture``): under a mesh the masked step run eagerly at the same
+    cadence."""
+    import functools
+    from unittest import mock
+
+    return mock.patch.object(align_mod, "_fixed_point", functools.partial(
+        align_mod._fixed_point, capture=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mesh", "spatial"])
+def test_nccl_loop_captured_cached_and_dropped_with_its_group(card, kind):
+    """One NCCL rank (``mesh=make_mesh(1)``) and one NCCL band (a
+    ``Drizzle(spatial_mesh=)`` on it): the first call captures the masked
+    step with its collectives (1 capture, n − 1 replays), a second call
+    replays the cached graph n times, each with at most ⌈n/4⌉ + 1 host
+    reads (the ranks' agreement among them) and the launch rule of one
+    card, and both follow the same call with capture turned off (the
+    eager mesh loop) within 1e-4 px at equal ``nmatches``. Once the group
+    is destroyed and a new one made, the next call captures anew: the old
+    group's graph never replays and leaves the cache."""
+    import torch.distributed as dist
+
+    from subpixal_tpu_torch.parallel import make_mesh
+    from subpixal_tpu_torch.resample import Drizzle
+
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    kw = dict(device="cuda", max_iterations=6, eps_shift=0.0,
+              **_GRAPH_PATHS["new"])
+
+    def call(mesh):
+        if kind == "mesh":
+            return align_images(exposures=exps, mesh=mesh, **kw)
+        return align_images(resample=Drizzle(exps, spatial_mesh=mesh), **kw)
+
+    align_mod._LOOP_CACHE.clear()
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend(mesh.group()) == "nccl"
+        runs = []
+        for cached in (False, True):
+            kernels.reset_launch_counts()
+            res = call(mesh)
+            launches = dict(kernels.LAUNCHES)
+            bd = res.setup_breakdown
+            n = res.n_iterations
+            assert n == 6 and not res.converged
+            assert (bd["loop_graphs"], bd["loop_graph_hits"]) == (
+                (0, 1) if cached else (1, 0))
+            assert bd["loop_replays"] == n - bd["loop_graphs"]
+            assert bd["loop_steps"] == n and bd["loop_compile"] > 0
+            assert bd["loop_host_reads"] <= -(-n // 4) + 1
+            assert launches == {"drizzle_deposit": 1 + n, "blot_gather": n,
+                                "measure_displacement": n}
+            assert pairwise_shift_errors(res.shifts, planted) < 0.005
+            runs.append(res)
+        with _eager_loop():
+            eager = call(mesh)
+        ebd = eager.setup_breakdown
+        assert "loop_graphs" not in ebd and "loop_compile" not in ebd
+        assert ebd["loop_host_reads"] <= -(-n // 4) + 1
+        for res in runs:
+            assert res.n_iterations == eager.n_iterations
+            for ra, rb in zip(res.history, eager.history):
+                for a, b in zip(ra, rb):
+                    assert a.nmatches == b.nmatches
+                    assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-4
+        old = [e for e in align_mod._LOOP_CACHE.values() if e.groups]
+        assert len(old) == 1
+    finally:
+        dist.destroy_process_group()
+    mesh = make_mesh(1)
+    try:
+        res = call(mesh)
+    finally:
+        dist.destroy_process_group()
+    bd = res.setup_breakdown
+    assert (bd["loop_graphs"], bd["loop_graph_hits"]) == (1, 0)
+    assert all(e is not old[0] for e in align_mod._LOOP_CACHE.values())
+    assert np.abs(res.shifts - runs[0].shifts).max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_failed_nccl_capture_raises_and_runs_nothing_eagerly(card):
+    """Under one NCCL rank a step that reads the host runs its eager
+    warm-up (collective and all), then its capture raises: nothing
+    retries it eagerly, nothing is cached."""
+    import torch.distributed as dist
+
+    from subpixal_tpu_torch.align import _fixed_point
+    from subpixal_tpu_torch.parallel import make_mesh
+
+    calls = []
+
+    def step(b, Ms, ts):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        bad = float(ts.sum().item())  # a host read, before any collective
+        s = ts.sum()[None] + bad
+        dist.all_reduce(s, group=mesh.group())
+        return Ms, ts + s, dict(max_shift=s[0] + 1.0)
+
+    align_mod._LOOP_CACHE.clear()
+    mesh = make_mesh(1)
+    try:
+        with pytest.raises(RuntimeError):
+            _fixed_point(step, None, torch.eye(2, device=card)[None],
+                         torch.zeros(1, 2, device=card), {}, 6, 1e-3, {},
+                         ("failing NCCL step",), mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert calls == [False, True]
+    assert not align_mod._LOOP_CACHE
+
+
 _TWO_RANKS_ON_ONE_CARD = r"""
 import json, sys
 import torch

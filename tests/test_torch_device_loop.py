@@ -5,8 +5,9 @@ The JAX package runs the fixed point as one ``lax.while_loop`` and reads
 the host once an entry; the port (``align._fixed_point``) runs the same
 masked step (the iteration that converges keeps its result, the steps
 after it change nothing), replaying a CUDA graph of the step on a card
-and reading the host every ``READ_EVERY`` iterations and at the end, and
-on the CPU calling the step and reading every iteration. Each case goes
+and reading the host every ``READ_EVERY`` iterations and at the end (so
+too under a mesh, on gloo, and there on two spawned CPU ranks), and on
+one CPU calling the step and reading every iteration. Each case goes
 through both packages on the CPU with the same inputs: the same
 iterations, convergence, history length, records and ``nmatches``, and
 every iteration's shifts within ``SHIFT_TOL`` px; the port's own step
@@ -245,3 +246,86 @@ def test_fft_frequencies_built_on_the_device():
                                        atol=1e-5)
             np.testing.assert_allclose(im[0, 0].numpy(), np.sin(ang),
                                        atol=1e-5)
+
+
+#: two gloo ranks on the CPU: ``_fixed_point`` under their mesh on a
+#: scripted step whose update is an ``all_reduce`` (each rank adds its
+#: rank + 1; the sum is the same on both), T = 6, ``max_shift`` 1/k at
+#: iteration k, converging at 3 under eps 0.45, at the mesh's cadence
+#: (every READ_EVERY) and at one read an iteration; then the ranks'
+#: agreement on a cached graph with each rank in turn lacking it, and
+#: with neither
+_MESH_LOOP = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from subpixal_tpu_torch import align as TA
+from subpixal_tpu_torch.parallel import init_distributed, make_mesh
+
+rank, world, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+init_distributed(addr, world, rank, backend="gloo")
+mesh = make_mesh(world, device="cpu")
+calls = []
+
+
+def step(b, Ms, ts):
+    calls.append(1)
+    part = torch.full((1,), float(rank + 1))
+    dist.all_reduce(part, group=mesh.group())
+    newt = ts + part / (world * (world + 1) / 2)
+    return Ms * 2.0, newt, dict(G_t=newt, max_shift=1.0 / newt[0, 0])
+
+
+out = {}
+for name, every in (("mesh", None), ("every", 1)):
+    calls.clear()
+    bd = {}
+    Ms, ts, n, done, hist, _ = TA._fixed_point(
+        step, None, torch.ones(1, 2, 2), torch.zeros(1, 2),
+        dict(G_t=((1, 2), torch.float32)), 6, 0.45, bd, every=every,
+        mesh=mesh)
+    out[name] = dict(Ms=Ms.tolist(), ts=ts.tolist(), n=n, done=done,
+                     G_t=hist["G_t"].tolist(), calls=len(calls), bd=bd)
+out["agree"] = {str(lacks): TA._all_ranks_hold(rank != lacks, mesh, "cpu")
+                for lacks in (-1, 0, 1)}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_loop():
+    """Each of two gloo ranks' record of ``_MESH_LOOP``."""
+    import json
+
+    from subpixal_tpu_torch.testing import SpawnedRanks
+
+    outs = SpawnedRanks(_MESH_LOOP, 2).wait(timeout=120)
+    return [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("RESULT "))[7:]) for o in outs]
+
+
+def test_mesh_loop_reads_every_fourth_iteration_on_gloo_ranks(mesh_loop):
+    """Under a mesh ``_fixed_point`` reads every ``READ_EVERY`` iterations
+    and at the end, on gloo too: the records equal those of one read an
+    iteration, the fourth (masked) step past convergence changes nothing,
+    and every rank runs as many steps, so the collectives stay in step."""
+    for r in mesh_loop:
+        fast, slow = r["mesh"], r["every"]
+        assert (fast["n"], fast["done"]) == (slow["n"], slow["done"]) \
+            == (3, True)
+        assert (fast["G_t"], fast["Ms"], fast["ts"]) == (
+            slow["G_t"], slow["Ms"], slow["ts"])
+        assert fast["G_t"] == [[[k, k]] for k in (1.0, 2.0, 3.0)]
+        assert fast["bd"] == dict(loop_steps=4, loop_host_reads=1)
+        assert slow["bd"] == dict(loop_steps=3, loop_host_reads=3)
+        assert (fast["calls"], slow["calls"]) == (4, 3)
+    assert mesh_loop[0]["mesh"] == mesh_loop[1]["mesh"]
+
+
+@pytest.mark.parametrize("lacks", [-1, 0, 1])
+def test_one_rank_without_the_graph_makes_every_rank_capture(mesh_loop,
+                                                              lacks):
+    """The ranks' agreement (``_all_ranks_hold``): where one rank's cache
+    lacks the loop's graph, every rank takes the capture branch; where
+    every rank holds it (``lacks`` -1), every rank replays."""
+    assert [r["agree"][str(lacks)] for r in mesh_loop] == [lacks < 0] * 2

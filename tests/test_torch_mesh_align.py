@@ -167,8 +167,8 @@ for name, case in json.load(open(spec)).items():
         truncated=r.truncated_sources,
         bucket="big_bucket_stage" in r.setup_breakdown,
         breakdown={k: r.setup_breakdown[k] for k in (
-            "sparse_live_set", "sparse_live_frac", "sparse_heals")
-            if k in r.setup_breakdown},
+            "sparse_live_set", "sparse_live_frac", "sparse_heals",
+            "loop_steps", "loop_host_reads") if k in r.setup_breakdown},
         history=[[(x.name, x.iteration, x.nmatches, list(x.shift))
                   for x in recs] for recs in r.history])
 print("RESULT " + json.dumps(out), flush=True)
@@ -184,7 +184,8 @@ def cases():
 def port_mesh(cases, tmp_path_factory):
     """Starts D = 2 and D = 4 ranks (all cases each) at once; ``result(D)``
     collects them (the JAX runs go on meanwhile) and checks that every
-    rank returned the same."""
+    rank returned the same; ``result(D, every_rank=True)`` returns each
+    rank's record."""
     root = tmp_path_factory.mktemp("mesh_align")
     spec = {}
     for name, (exps, cat, cfg, sizes) in cases.items():
@@ -204,12 +205,14 @@ def port_mesh(cases, tmp_path_factory):
     worlds = {D: SpawnedRanks(_RANK, D, args=(spec_path,)) for D in (2, 4)}
     cache = {}
 
-    def result(D):
+    def result(D, every_rank=False):
         if D not in cache:
             cache[D] = [json.loads(next(ln for ln in o.splitlines()
                                         if ln.startswith("RESULT "))[7:])
                         for o in worlds[D].wait(timeout=400)]
         outs = cache[D]
+        if every_rank:
+            return outs
         assert all(o == outs[0] for o in outs[1:]), "ranks disagree"
         return outs[0]
 
@@ -296,3 +299,27 @@ def test_mesh_cases_engage_their_branches(port_mesh):
         assert abs(rel[3, 0] - rel[:3, 0].mean() - 30.0) < 0.15
         assert np.abs(np.subtract(runs["otf"]["shifts"],
                                   runs["batch"]["shifts"])).max() > 1e-6
+
+
+#: the cases that run the device loop (the heal case runs the host loop)
+LOOP_CASES = [(name, D) for name, D in CASES if name != "heal"]
+
+
+@pytest.mark.parametrize("name,D", LOOP_CASES)
+def test_mesh_device_loop_reads_every_fourth_iteration(port_mesh, name, D):
+    """Under a mesh the device loop reads the host every ``READ_EVERY``
+    (4) iterations and at the end of an entry, on gloo too, as the JAX
+    package's loop syncs once an entry: at most ⌈n/4⌉ + 1 reads an entry
+    (one, plus one a sparse heal), and every rank runs as many masked
+    steps, the iterations and at most the rest of the last read's
+    chunk."""
+    runs = [r[name] for r in port_mesh(D, every_rank=True)]
+    n = runs[0]["n_iterations"]
+    bd = runs[0]["breakdown"]
+    entries = 1 + bd.get("sparse_heals", 0)
+    assert [r["breakdown"]["loop_steps"] for r in runs] == \
+        [bd["loop_steps"]] * D
+    assert n <= bd["loop_steps"] <= n + 3 * entries
+    for r in runs:
+        assert 0 < r["breakdown"]["loop_host_reads"] <= entries * (
+            -(-n // 4) + 1)

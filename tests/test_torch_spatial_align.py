@@ -175,8 +175,8 @@ for name, case in json.load(open(spec)).items():
             converged=r.converged, truncated=r.truncated_sources,
             bucket="big_bucket_stage" in r.setup_breakdown,
             breakdown={k: r.setup_breakdown[k] for k in (
-                "sparse_live_frac", "sparse_heals")
-                if k in r.setup_breakdown},
+                "sparse_live_frac", "sparse_heals", "loop_steps",
+                "loop_host_reads") if k in r.setup_breakdown},
             spatial=r.drizzle.spatial_mesh is meshes[label],
             history=[[(x.name, x.iteration, x.nmatches, list(x.shift))
                       for x in recs] for recs in r.history])
@@ -192,7 +192,8 @@ def cases():
 @pytest.fixture(scope="module")
 def port_spatial(cases, tmp_path_factory):
     """Starts the D = 2 and D = 4 programs (every case each) at once;
-    ``result(D)`` collects them and checks that the ranks agree."""
+    ``result(label)`` collects them and checks that the ranks agree;
+    ``result(label, every_rank=True)`` returns each rank's records."""
     root = tmp_path_factory.mktemp("spatial_align")
     spec = {}
     for name, (exps, cat, cfg) in cases.items():
@@ -212,13 +213,15 @@ def port_spatial(cases, tmp_path_factory):
     worlds = {D: SpawnedRanks(_RANK, D, args=(spec_path,)) for D in (2, 4)}
     cache = {}
 
-    def result(label):
+    def result(label, every_rank=False):
         D = int(label[-1])
         if D not in cache:
             cache[D] = [json.loads(next(ln for ln in o.splitlines()
                                         if ln.startswith("RESULT "))[7:])
                         for o in worlds[D].wait(timeout=500)]
         outs = cache[D]
+        if every_rank:
+            return outs
         assert all(o == outs[0] for o in outs[1:]), "ranks disagree"
         return outs[0]
 
@@ -316,6 +319,32 @@ def test_spatial_cases_engage_their_branches(port_spatial):
     assert not port_spatial("rows2")["catalog/rows2"]["bucket"]
     heal = port_spatial("rows4")["heal/rows4"]["breakdown"]
     assert heal["sparse_live_frac"] <= 0.5 and heal["sparse_heals"] >= 1
+
+
+#: the pairs that run the device loop (host_loop and heal run the host
+#: loop)
+LOOP_PAIRS = [(c, m) for c, m in PAIRS if c not in ("host_loop", "heal")]
+
+
+@pytest.mark.parametrize("name,label", LOOP_PAIRS)
+def test_spatial_device_loop_reads_every_fourth_iteration(port_spatial,
+                                                          name, label):
+    """Under a spatial mesh the device loop reads the host every
+    ``READ_EVERY`` (4) iterations and at the end of an entry, on gloo
+    too: at most ⌈n/4⌉ + 1 reads an entry, and every rank runs as many
+    masked steps (the collectives of the band exchange and the MAX
+    reductions stay in step)."""
+    runs = [r[f"{name}/{label}"]
+            for r in port_spatial(label, every_rank=True)]
+    n = runs[0]["n_iterations"]
+    bd = runs[0]["breakdown"]
+    entries = 1 + bd.get("sparse_heals", 0)
+    assert [r["breakdown"]["loop_steps"] for r in runs] == \
+        [bd["loop_steps"]] * len(runs)
+    assert n <= bd["loop_steps"] <= n + 3 * entries
+    for r in runs:
+        assert 0 < r["breakdown"]["loop_host_reads"] <= entries * (
+            -(-n // 4) + 1)
 
 
 def test_mesh_and_spatial_mesh_are_exclusive():

@@ -342,8 +342,10 @@ _MODULE_PAIRS = {"wcs.wcs": "wcs", "wcs.fitswcs": "fitswcs",
 #: A17: the JAX package's TPU-runtime and TPU-layout machinery, which the
 #: port leaves out by design. Modules:
 _OMITTED_MODULES = {
-    "aot": "caches compiled XLA executables; the port compiles only its "
-           "kernels, cached under a hash of each source",
+    "aot": "caches compiled XLA executables on disk; a CUDA graph is "
+           "bound to its process and cannot be serialised, so the port "
+           "keeps its captured loops in memory (align._LOOP_CACHE) and "
+           "its kernels under a hash of each source",
     "ops.correlate_packed": "the TPU's batch-minor lane layout; on the "
                             "card B3 is one kernel",
     "kernels._common": "Pallas block and tile constants",
