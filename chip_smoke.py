@@ -14,8 +14,11 @@ is 4).
 ``python3 chip_smoke.py --profile [--root DIR]`` builds the kernels and
 instead measures device time with ``torch.profiler``: one iteration's
 re-drizzle as the package's align step runs it, the kernels per launch,
-and one warm align call of each path (the spatial path on one NCCL
-band among them). ``--root DIR`` imports the package
+the device finder's host syncs and ms a warm call, and one warm align
+call of each path (the spatial path on one NCCL band among them), with
+the host launch API calls of its setup (outside the loop), and the
+memory peak of a one-card align of the 4 x 4096² scene with the setup
+programs off and on. ``--root DIR`` imports the package
 from another checkout (a ``git archive`` of an earlier commit), so two
 commits can be compared in one process each on the same card.
 
@@ -63,6 +66,21 @@ failure):
    to its own run on the CPU (rows, areas, bboxes and segmentation planes
    equal, positions within 1e-4 px, fluxes within 1e-5 relative); warm
    ms on the card beside the CPU run and the host finder;
+6a. the aot phase: the setup programs that ``aot.get_executable``
+   captures as CUDA graphs (``render_stack``, ``deposit_stack``,
+   ``cutout_pixmaps_stack``, ``device_stage``, and the device finder's
+   ``cat_count``, ``cat_count_thr``, ``cat_peaks``, ``cat_find``,
+   ``cat_remap``), recorded with their inputs on phase 9's scene
+   rendered on the card at full size (its setup, and the finder on its
+   reference with 256 slots and at an explicit threshold): each one's
+   first call runs it eagerly and captures it, counting the launches
+   ``torch.profiler`` sees the card run, its second ``get_executable``
+   is a hit, its replay equals the eager function (the finder exactly,
+   ``deposit_stack`` and ``render_stack`` within ``REL_TOL``), and a
+   replay adds the launches its graphs hold (B1 once a
+   ``deposit_stack`` replay, nothing else); prints each one's first-call
+   seconds, eager and replay ms, host syncs and the memory it holds, and
+   the finder's host syncs a call with its programs and with them off;
 7. the defaults' path: ``align_images`` on that stack for 4 iterations,
    with the kernels' launch counts set to 0 just before and read just
    after (B1 and B2 must have run, B1 once at setup, the stacked
@@ -209,6 +227,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import ExitStack, contextmanager
 from unittest import mock
 
 import numpy as np
@@ -978,7 +997,9 @@ def _plain_versions():
     # a graph cached before the patches would replay the kernels, and one
     # captured under them would replay the plain versions after
     cold_loop()
+    cold_programs()
     stack.callback(cold_loop)
+    stack.callback(cold_programs)
     return stack
 
 
@@ -1868,16 +1889,6 @@ def phase_catalog(dev):
     img = drizzle_combine(drz._sci_acc, drz._wht_acc, fill=drz.fillval)
     host = img.cpu()
 
-    def wall_ms(fn, reps):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(1e3 * (time.perf_counter() - t0))
-        return statistics.median(out)
-
     t0 = time.perf_counter()
     gc, gseg = find_sources_device(img)
     torch.cuda.synchronize()
@@ -1908,6 +1919,293 @@ def phase_catalog(dev):
           f"{host_ms:.3f} ms ({n_host} sources)")
     return dict(device_ms=dev_ms, first_ms=cold_ms, cpu_ms=cpu_ms,
                 host_ms=host_ms, n=len(gc), n_host=n_host)
+
+
+#: each setup program's bar between its replay and its eager run: B1's
+#: atomics (deposit_stack) and index_add_'s (render_stack) sum in an order
+#: that changes from run to run (REL_TOL); the programs that derive the
+#: finder's threshold (cat_count, cat_find) take the finder's own bar on
+#: the card (PERF.md §2), since the statistics' float32 prefix sums
+#: (cumsum on the card) may round the threshold otherwise from run to
+#: run; every other program must be exact
+PROGRAM_TOL = {"deposit_stack": REL_TOL, "render_stack": REL_TOL,
+               "cat_count": "finder", "cat_find": "finder"}
+
+
+def finder_close(got, want) -> bool:
+    """The finder's bar between two runs of a program on the card: counts,
+    flags, areas, bboxes, peak pixels and rank planes equal; the kept
+    sources' positions within 1e-4 px, their fluxes and peaks and the
+    threshold within 1e-5 relative."""
+    import torch
+
+    for g, w in zip(_leaves(got), _leaves(want)):
+        if g.dim() == 2 and g.shape[0] == 14 and g.is_floating_point():
+            exact = [0, 1, 6, 7, 8, 9, 10, 11, 12, 13]  # the packed table
+            kept = w[0] > 0
+            if not (torch.equal(g[exact], w[exact]) and bool(
+                    ((g[3:5] - w[3:5])[:, kept].abs() <= 1e-4).all()) and bool(
+                    ((g[(2, 5),] - w[(2, 5),])[:, kept].abs()
+                     <= 1e-5 * w[(2, 5),][:, kept].abs()).all())):
+                return False
+        elif g.is_floating_point() and g.dim() == 0:  # the threshold
+            if not abs(float(g) - float(w)) <= 1e-5 * abs(float(w)):
+                return False
+        elif not torch.equal(g, w):
+            return False
+    return True
+
+#: the setup programs this port runs through aot.get_executable
+PROGRAMS = ("deposit_stack", "cutout_pixmaps_stack", "device_stage",
+            "cat_count", "cat_count_thr", "cat_peaks", "cat_find",
+            "cat_remap", "render_stack")
+
+
+def cold_programs():
+    """Empty the package's cache of captured setup programs (where it has
+    one), so that the next call of each captures it anew."""
+    try:
+        from subpixal_tpu_torch import aot
+    except ImportError:  # a checkout from before the programs
+        return
+    aot._MEM.clear()
+
+
+def _leaves(tree):
+    """The leaves of a program's argument or result tree (tuples, lists
+    and dicts of tensors, generators and other values)."""
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    if isinstance(tree, dict):
+        return [x for t in tree.values() for x in _leaves(t)]
+    return [tree]
+
+
+def _fresh(tree):
+    """``tree`` with each generator a new copy of its state."""
+    import torch
+
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fresh(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Generator):
+        g = torch.Generator(device=tree.device)
+        g.set_state(tree.get_state())
+        return g
+    return tree
+
+
+def _program_sig(name, args, statics):
+    """What tells two calls of a program apart: its name, statics and each
+    argument's shape, dtype and device."""
+    import torch
+
+    return (name, repr(sorted(statics.items())), tuple(
+        (tuple(a.shape), str(a.dtype), str(a.device))
+        if isinstance(a, torch.Tensor) else type(a).__name__
+        for a in _leaves(args)))
+
+
+#: the package's modules that run setup programs through
+#: aot.get_executable, under the name they import it as
+PROGRAM_MODULES = ("align", "blot", "catalogs_device", "resample", "testing")
+
+
+@contextmanager
+def recorded_programs():
+    """A block whose setup program calls are collected, hit or miss, as
+    ``(name, fn, args, statics)`` (each generator argument a copy of its
+    state at the call), by a spy on ``get_executable`` where each module
+    of :data:`PROGRAM_MODULES` imports it."""
+    import importlib
+
+    from subpixal_tpu_torch import aot
+
+    calls = []
+    real = aot.get_executable
+
+    def spy(name, fn, args, *, statics=None, key_extra=(), timings=None):
+        calls.append((name, fn, _fresh(args), dict(statics or {})))
+        return real(name, fn, args, statics=statics, key_extra=key_extra,
+                    timings=timings)
+
+    with ExitStack() as stack:
+        for m in PROGRAM_MODULES:
+            mod = importlib.import_module(f"subpixal_tpu_torch.{m}")
+            stack.enter_context(mock.patch.object(mod, "get_executable", spy))
+        yield calls
+
+
+def kernels_ran(prof) -> dict:
+    """The B1, B2 and B3 kernels a ``torch.profiler`` run saw the card
+    run, by wrapper name."""
+    return {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and re.search(pat, e.key))
+            for k, pat in KERNEL_NAMES.items()}
+
+
+def host_syncs(fn, where=None):
+    """The synchronising CUDA calls (host reads) ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode('warn')`` reports them; ``where``
+    (a dict), when given, counts them by the Python line that made them."""
+    import os
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in rec if "synchroniz" in str(w.message)]
+    for w in syncs if where is not None else ():
+        at = f"{os.path.basename(w.filename)}:{w.lineno}"
+        where[at] = where.get(at, 0) + 1
+    return len(syncs)
+
+
+def phase_aot(dev):
+    """The setup programs (``aot.get_executable``) at the main path's
+    shapes: phase 9's scene rendered on the card (``render_stack``) and
+    its setup (``align_images``, one iteration: the finder's programs
+    warmed by ``warm_compile``, ``deposit_stack``, ``cat_count``,
+    ``cat_peaks``, ``cat_remap``, ``cutout_pixmaps_stack``,
+    ``device_stage``), and the device finder on its drizzled reference
+    with 256 slots (``cat_find``) and at an explicit threshold
+    (``cat_count_thr``), recorded with their inputs. For each program,
+    from an empty cache: the first call runs it eagerly and captures it
+    (CUDA graphs, a ``{name}.compile`` timing), and the launches it
+    counts equal the kernels ``torch.profiler`` saw the card run; a
+    second ``get_executable`` is a hit (the same executable); its replay
+    equals the eager function (the finder's exactly, ``deposit_stack``
+    and ``render_stack`` within REL_TOL), and the launches a replay adds
+    equal the kernels its graphs hold (B1 once a ``deposit_stack``
+    replay, nothing else). Prints each program's capture seconds, eager
+    and replay ms, host syncs of an eager and of a replayed call, and the
+    finder's host syncs a call with its programs and with them off."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from subpixal_tpu_torch import aot, catalogs_device, kernels
+    from subpixal_tpu_torch.align import align_images
+    from subpixal_tpu_torch.ops.drizzle import drizzle_combine
+    from subpixal_tpu_torch.resample import Drizzle
+    from subpixal_tpu_torch.testing import simulate_stack
+
+    cold_programs()
+    scene = dict(n_exp=8, shape=(1024, 1024), n_stars=60, seed=11)
+    with recorded_programs() as calls:
+        exps, _ = simulate_stack(device=dev, **scene)
+        res = align_images(exposures=exps, device=dev, max_iterations=1,
+                           eps_shift=1e-7, **NEW_PATH)
+        drz = Drizzle(exps, device=dev)
+        drz.execute()
+        img = drizzle_combine(drz._sci_acc, drz._wht_acc, fill=drz.fillval)
+        catalogs_device.find_sources_device(img, max_sources=256)
+        catalogs_device.find_sources_device(img, threshold=0.05)
+    print("aot: setup_breakdown of the recorded call " + json.dumps(
+        {k: round(v, 4) for k, v in res.setup_breakdown.items()
+         if k.endswith("compile")}))
+    progs = {}
+    for name, fn, args, statics in calls:  # the last call of each key
+        progs[_program_sig(name, args, statics)] = (name, fn, args, statics)
+    if {p[0] for p in progs.values()} != set(PROGRAMS):
+        raise AssertionError(f"aot: the path ran {sorted(progs)}, expected "
+                             f"{PROGRAMS}")
+    out = {}
+    for name, fn, args, statics in progs.values():
+        cold_programs()
+        t = {}
+        exe = aot.get_executable(name, fn, _fresh(args), statics=statics,
+                                 timings=t)
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            exe(*_fresh(args))
+            torch.cuda.synchronize()
+        first, ran = dict(kernels.LAUNCHES), kernels_ran(prof)
+        capture_s = t.get(f"{name}.compile")
+        t.clear()
+        again = aot.get_executable(name, fn, _fresh(args), statics=statics,
+                                   timings=t)
+        steps = getattr(exe, "steps", None)
+        if not steps or capture_s is None or again is not exe or t:
+            raise AssertionError(f"aot {name}: not captured, then hit: "
+                                 f"{type(exe).__name__}, {capture_s}, {t}")
+        if first != ran:
+            raise AssertionError(f"aot {name}: the capturing call counted "
+                                 f"{first}, the card ran {ran}")
+        kernels.reset_launch_counts()
+        got = exe(*_fresh(args))
+        launches = dict(kernels.LAUNCHES)
+        want = fn(*_fresh(args), **statics)
+        errs = [_rel_err(g, w)[0] if g.is_floating_point()
+                else (0.0 if torch.equal(g, w) else float("inf"))
+                for g, w in zip(_leaves(got), _leaves(want))]
+        err = max(errs)
+        tol = PROGRAM_TOL.get(name, 0.0)
+        close = (finder_close(got, want) if tol == "finder"
+                 else err <= tol)
+        b1 = 1 if name == "deposit_stack" else 0
+        if (not close or launches != exe.launches
+                or launches["drizzle_deposit"] != b1
+                or sum(launches.values()) != b1):
+            raise AssertionError(f"aot {name}: replay vs eager {errs} "
+                                 f"(bar {tol}), launches {launches}, "
+                                 f"in its graphs {exe.launches}")
+        eager_ms = wall_ms(lambda: fn(*_fresh(args), **statics), 5)
+        replay_ms = wall_ms(lambda: exe(*_fresh(args)), 5)
+        syncs = (host_syncs(lambda: fn(*_fresh(args), **statics)),
+                 host_syncs(lambda: exe(*_fresh(args))))
+        loops = sum(s.done is not None for s in steps)
+        out[name] = dict(capture_s=capture_s, eager_ms=eager_ms,
+                         replay_ms=replay_ms, syncs=syncs,
+                         graphs=len(steps), loops=loops,
+                         launches=exe.launches, max_rel_err=err,
+                         held_mib=exe.nbytes / 2**20)
+        print(f"aot {name}: first call (eager, then capture) "
+              f"{capture_s:.4f} s ({len(steps)} graphs, {loops} of them "
+              f"flood blocks; launches counted {json.dumps(first)} = the "
+              f"profiler's), then a hit; replay vs eager max rel err "
+              f"{err:.3e} (bar {tol}); launches a replay "
+              f"{json.dumps(exe.launches)}; eager {eager_ms:.3f} ms, replay "
+              f"{replay_ms:.3f} ms; host syncs eager {syncs[0]}, replay "
+              f"{syncs[1]}; held {exe.nbytes / 2**20:.1f} MiB (static "
+              f"inputs and graph pool)")
+    # the finder's host reads a call: through its programs, and with the
+    # programs off (the same functions eagerly)
+    catalogs_device.find_sources_device(img)
+    lines = {}
+    on = host_syncs(lambda: catalogs_device.find_sources_device(img), lines)
+    with mock.patch.object(aot, "aot_enabled", lambda: False):
+        cold_programs()
+        off = host_syncs(lambda: catalogs_device.find_sources_device(img))
+        off_ms = wall_ms(lambda: catalogs_device.find_sources_device(img), 5)
+    cold_programs()
+    catalogs_device.find_sources_device(img)
+    on_ms = wall_ms(lambda: catalogs_device.find_sources_device(img), 5)
+    print(f"aot: device finder on the 1024² reference: {on} host syncs a "
+          f"call through its programs ({on_ms:.3f} ms; by line "
+          f"{json.dumps(lines)}), {off} with them off ({off_ms:.3f} ms)")
+    return out
+
+
+def wall_ms(fn, reps):
+    """Median wall ms of ``fn()`` between two device synchronisations."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
 
 
 def _quiet_spots(img, n, rng, taken=()):
@@ -2199,6 +2497,97 @@ def profile_redrizzle(dev) -> None:
                      device_us(rotating(call, ref, img, m), "measure")))
 
 
+def loop_marked():
+    """A context under which each call of the align loop
+    (``align._fixed_point``) is a ``torch.profiler`` range named
+    ``align_loop``, so a trace splits setup from the loop."""
+    import functools
+
+    from torch.profiler import record_function
+
+    from subpixal_tpu_torch import align as align_mod
+
+    real = align_mod._fixed_point
+
+    @functools.wraps(real)
+    def marked(*a, **k):
+        with record_function("align_loop"):
+            return real(*a, **k)
+
+    return mock.patch.object(align_mod, "_fixed_point", marked)
+
+
+def profile_finder(dev) -> None:
+    """``--profile``: the device finder on the main path's reference (the
+    8 x 1024² stack drizzled on the card), warm: its host syncs a call
+    and its wall ms."""
+    from subpixal_tpu_torch.catalogs_device import find_sources_device
+    from subpixal_tpu_torch.ops.drizzle import drizzle_combine
+    from subpixal_tpu_torch.resample import Drizzle
+    from subpixal_tpu_torch.testing import simulate_stack
+
+    exps, _ = simulate_stack(n_exp=8, shape=(1024, 1024), n_stars=60,
+                             seed=11)
+    drz = Drizzle(exps, device=dev)
+    drz.execute()
+    img = drizzle_combine(drz._sci_acc, drz._wht_acc, fill=drz.fillval)
+    find_sources_device(img)
+    syncs = host_syncs(lambda: find_sources_device(img))
+    print(f"device finder, 1024² reference, warm: {syncs} host syncs a "
+          f"call, {wall_ms(lambda: find_sources_device(img), 10):.3f} ms")
+
+
+def profile_memory_4k(dev) -> None:
+    """``--profile``: the memory of a one-card align of ``bench.py``'s
+    4 x 4096² seed-23 scene (the new path, 2 iterations): a warm call
+    with the setup programs off (run eagerly), then with them on, its
+    capturing call and a warm call; each call's peak allocated and
+    reserved MiB and what the cached programs hold."""
+    import importlib.util
+
+    import torch
+
+    from subpixal_tpu_torch.align import align_images
+    from subpixal_tpu_torch.testing import simulate_stack
+
+    n, shape, stars, seed = SPATIAL_SCENES["4k"]
+    exps, _ = simulate_stack(n_exp=n, shape=shape, n_stars=stars, seed=seed)
+    kw = dict(exposures=exps, device=dev, max_iterations=2, eps_shift=1e-7,
+              **NEW_PATH)
+
+    def measured(label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = align_images(**kw)
+        torch.cuda.synchronize()
+        held = sum(getattr(e, "nbytes", 0) for e in (
+            aot._MEM.values() if aot is not None else ()))
+        print(f"4 x 4096² one card, {label}: wall {time.time() - t0:.3f} s, "
+              f"setup_s {res.setup_s:.4f}, memory peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"allocated, {torch.cuda.max_memory_reserved() / 2**20:.1f} "
+              f"MiB reserved; the cached programs hold "
+              f"{held / 2**20:.1f} MiB")
+
+    if importlib.util.find_spec("subpixal_tpu_torch.aot") is None:
+        aot = None  # a checkout from before the programs
+        align_images(**kw)
+        measured("no programs, warm call")
+        return
+    from subpixal_tpu_torch import aot
+
+    with mock.patch.object(aot, "aot_enabled", lambda: False):
+        cold_programs()
+        torch.cuda.empty_cache()
+        align_images(**kw)
+        measured("programs off, warm call")
+    cold_programs()
+    torch.cuda.empty_cache()
+    measured("programs on, capturing call")
+    measured("programs on, warm call")
+
+
 def profile_paths(dev) -> None:
     """``--profile``: torch.profiler over one warm align call of each path
     (after a warm-up call, and a call that captures the loop's graph
@@ -2266,12 +2655,22 @@ def profile_paths(dev) -> None:
         torch.cuda.synchronize()
         cold_wall = time.time() - t0
         kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                loop_marked():
             res = call()
             torch.cuda.synchronize()
         wall = time.time() - t0
+        # the host's launch API calls outside the fixed-point loop: setup's
+        loops = [e.time_range for e in prof.events()
+                 if e.name == "align_loop"]
+        setup_api = sum(
+            1 for e in prof.events()
+            if e.device_type.name == "CPU" and "Launch" in e.name
+            and not any(r.start <= e.time_range.start <= r.end
+                        for r in loops))
         launches = dict(kernels.LAUNCHES)
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA"]
@@ -2307,6 +2706,14 @@ def profile_paths(dev) -> None:
             wrong.append(f"{label}: the profiler saw {ran} kernel "
                          f"launches, the counts say {launches}")
         iter_ms = 1e3 * res.history[-1][0].iter_s
+        print(f"{label} (profiled call): setup's host launch API calls "
+              f"{setup_api} (outside the loop), memory peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB "
+              f"reserved, setup_s {res.setup_s:.4f}, "
+              "setup_breakdown " + json.dumps(
+                  {k: round(v, 4) for k, v in res.setup_breakdown.items()
+                   if not k.startswith("loop_")}))
         print(f"{label} (profiled call): wall {wall:.3f} s, setup_s "
               f"{res.setup_s:.3f}, {iter_ms:.3f} ms per iteration; device "
               f"kernels {dev_us / 1e3:.3f} ms in all over {n_launch} "
@@ -2375,7 +2782,9 @@ def main() -> int:
         _build.load(k)
     if "--profile" in args:
         profile_redrizzle(dev)
+        profile_finder(dev)
         profile_paths(dev)
+        profile_memory_4k(dev)
         return 0
     if "--cards" in args:  # the mesh path over N NCCL ranks, a card each
         cards = int(args[args.index("--cards") + 1])
@@ -2398,6 +2807,7 @@ def main() -> int:
     b3 = phase_b3(dev)
     phase_b3_routes(dev)
     phase_catalog(dev)
+    phase_aot(dev)
     new = NEW_PATH
     runs = {
         "defaults": phase_align(dev, "defaults' path",

@@ -2,8 +2,8 @@
 
 Counterpart of ``subpixal_tpu/_native.py``, carried into the port so that
 importing it never loads JAX. ``csrc/labeling.cpp`` is host code, not a
-TPU kernel: it is built with g++ on first use into the package's
-``build/`` directory (keyed by a hash of the source and the machine, so a
+TPU kernel: it is built with g++ on first use into ``aot.aot_dir()``
+(the package's ``build/`` directory, or ``SUBPIXAL_TPU_AOT_DIR``; keyed by a hash of the source and the machine, so a
 stale or foreign binary is never loaded) and bound through ctypes. Every
 entry point keeps the scipy/numpy path of the JAX package for a machine
 without a compiler.
@@ -20,7 +20,6 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_BUILD = os.path.join(_HERE, "build")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
@@ -30,14 +29,15 @@ def _build_and_load() -> ctypes.CDLL | None:
     import hashlib
     import platform
 
+    from .aot import aot_dir
+
     src = os.path.join(_CSRC, "labeling.cpp")
     with open(src, "rb") as f:
         tag = hashlib.sha256(
             f.read() + platform.machine().encode()).hexdigest()[:16]
-    out = os.path.join(_BUILD, f"_subpixal_native_{tag}.so")
     try:
+        out = os.path.join(aot_dir(), f"_subpixal_native_{tag}.so")
         if not os.path.exists(out):
-            os.makedirs(_BUILD, exist_ok=True)
             # build under a private name, then rename: a concurrent
             # process never loads a half-written library
             tmp = f"{out}.{os.getpid()}.tmp"

@@ -8,7 +8,8 @@ products in TF32 (about three decimal digits) when
 ``torch.backends.cudnn.allow_tf32`` is on. :func:`full_f32` turns both
 off for the duration of a call and restores the caller's settings after;
 ``align_images``, ``find_displacement``, ``cross_correlate`` and
-``iter_linear_fit`` run under it.
+``iter_linear_fit`` run under it; :func:`matmul_precision` keys the
+programs ``aot.get_executable`` captures.
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+def matmul_precision() -> tuple:
+    """What decides the precision of float32 products here: TF32 on or
+    off for matmuls and for cuDNN, and the float32 matmul precision."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
 
 
 @contextlib.contextmanager

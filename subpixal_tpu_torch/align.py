@@ -71,14 +71,15 @@ import torch
 import torch.distributed as dist
 
 from ._precision import full_f32
-from .blot import (_affine_apply_grid, blot_measure,
-                   compute_cutout_pixmaps_device_stack, compute_pixmap,
-                   compute_pixmap_device_stack, device_pixmap_min_pixels)
+from .aot import Captured, capture_graph, get_executable, warm_up
+from .blot import (_affine_apply_grid, _cutout_pixmaps_stack, blot_measure,
+                   compute_pixmap, compute_pixmap_device_stack,
+                   device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
+from .catalogs_device import warm_compile as _cat_warm
 from .catalogs_spatial import SpatialSourceCatalog
 from .cutout import create_primary_cutouts
-from .kernels import LAUNCHES
 from .kernels import use_pallas as _use_pallas
 from .kernels.drizzle import drizzle_deposit_stack
 from .ops.cutouts import extract_cutouts
@@ -418,12 +419,14 @@ def _live_block_indices(bboxes, cut_bb, out_shape, blot_margin: float,
     return idx.reshape(Nb, E, -1), valid.reshape(Nb, E, -1)
 
 
-def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
-                  src_cat, seg_ok, cut_shape, use_seg):
-    """Static per-exposure loop inputs: the image cutouts (rate units)
-    with their in-image masks, and each source's segmentation mask
-    sampled (nearest) from its catalog's plane at the cutout pixmaps.
-    Without segmentation there is no mask (all ones)."""
+def _stage_device_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
+                         src_cat, seg_ok, *, cut_shape, use_seg=True):
+    """The program ``device_stage``: the static per-exposure loop inputs,
+    the image cutouts (rate units) with their in-image masks, and each
+    source's segmentation mask sampled (nearest) from its catalog's plane
+    ``seg_f[src_cat[n]]`` at the cutout pixmaps (all ones where its
+    catalog has none, ``seg_ok`` False). Without segmentation
+    (``use_seg`` False) there is no mask (all ones)."""
     cbs = [extract_cutouts(exp_data[e], centers[e], cut_shape)
            for e in range(exp_data.shape[0])]
     data = torch.stack([c.data for c in cbs])
@@ -442,6 +445,16 @@ def _stage_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
         torch.float32)
     return data, mask, torch.maximum(
         seg_cut, (~seg_ok)[None, :, None, None].to(torch.float32))
+
+
+def _stage_device_inputs_aot(*args, cut_shape, use_seg, timings=None):
+    """:func:`_stage_device_inputs` through ``aot.get_executable`` (one
+    captured program a shape on a card)."""
+    exe = get_executable("device_stage", _stage_device_inputs, args,
+                         statics=dict(cut_shape=tuple(cut_shape),
+                                      use_seg=bool(use_seg)),
+                         timings=timings)
+    return exe(*args)
 
 
 @dataclasses.dataclass
@@ -775,25 +788,19 @@ READ_EVERY = 4
 _LOOP_CACHE: dict = {}
 _LOOP_CACHE_MAX = 4
 
-#: one side stream a device for the loop's warm-up and capture, kept so
-#: that the allocator's blocks cached for it serve later calls
-_SIDE_STREAMS: dict = {}
-
-
 @dataclasses.dataclass
 class _Graph:
-    """One captured masked step and the static buffers it reads and
-    writes: the block's tensors, the state, the loop's store; the
-    kernels' launches one replay makes; and under a mesh the process
+    """One captured masked step (with the kernels' launches one replay
+    makes) and the static buffers it reads and writes: the block's
+    tensors, the state, the loop's store; and under a mesh the process
     groups whose communicators its collectives run on (held, so that a
     group's identity in the key is never another group's)."""
 
-    graph: Any
+    graph: Captured
     block: _Block
     Ms: torch.Tensor
     ts: torch.Tensor
     store: torch.Tensor
-    launches: dict
     groups: tuple = ()
 
 
@@ -991,57 +998,29 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
         store[1:2] |= (live & (info["max_shift"] < eps)).to(torch.int32)
         store[0:1] += live.to(torch.int32)
 
-    def replay(g):
-        def run():
-            g.graph.replay()
-            for k, n in g.launches.items():
-                LAUNCHES[k] += n
-        return run
-
     compile_s, captured = 0.0, 0
     h = None
     if hit is not None:
         compile_s = time.time() - t0
-        run = replay(hit)
+        run = hit.graph.replay
     elif graph:
-        side = _SIDE_STREAMS.get(dev)
-        if side is None:
-            side = _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            masked()
-        # nothing in flight (no collective either) when the capture begins
-        torch.cuda.synchronize(dev)
+        # the first step, eagerly on the side stream and waited for:
+        # nothing (no collective either) is in flight when a capture begins
+        warm_up(masked, dev)
         steps = 1
         if mesh is None:
             h = store.to("cpu", copy=True)
             reads += 1
         if h is None or not bool(h[1]):
             t_c = time.time()
-            g = torch.cuda.CUDAGraph()
-            before = dict(LAUNCHES)
-            try:
-                # capture_begin/end, not torch.cuda.graph: that context
-                # also collects garbage and empties the allocator's cache.
-                # thread_local: the CUDA calls of other threads (NCCL's
-                # watchdog queries its events) do not end this capture
-                with torch.cuda.stream(side):
-                    g.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        masked()
-                    finally:
-                        g.capture_end()
-            finally:
-                per_graph = {k: LAUNCHES[k] - n for k, n in before.items()}
-                LAUNCHES.update(before)
-            entry = _Graph(g, blk, Ms, ts, store, per_graph,
+            entry = _Graph(capture_graph(masked, dev), blk, Ms, ts, store,
                            () if mesh is None else _mesh_groups(mesh))
             _LOOP_CACHE[key] = entry
             while len(_LOOP_CACHE) > _LOOP_CACHE_MAX:
                 _LOOP_CACHE.pop(next(iter(_LOOP_CACHE)))
             compile_s = time.time() - t_c
             captured = 1
-            run = replay(entry)
+            run = entry.graph.replay
     else:
         run = masked
     while h is None or not (steps == T or bool(h[1])):
@@ -1213,13 +1192,24 @@ def align_images(
     if cfg.static_mask:
         resample.apply_static_mask()
         t = _mark("static_mask", t)
+    if (catalogs is None and cfg.device_catalog in ("auto", "device")
+            and dev.type == "cuda" and spatial is None):
+        # the device finder's programs for the reference's shape, before
+        # the first deposit, where the JAX package warms them
+        resample._ensure_output_grid()
+        _cat_warm(tuple(resample.output_shape), nsigma=cfg.catalog_nsigma,
+                  npixels=cfg.catalog_npixels, window=cfg.catalog_window,
+                  max_sources=cfg.catalog_max_sources, device=dev)
+        t = _mark("catalog_warm_compile", t)
     resample.execute()
     t = _mark("resample_execute", t)
     if cfg.reject_cr and len(resample.exposures) >= 3:
         resample.reject_cr()  # and the re-drizzle without the CRs
         t = _mark("reject_cr", t)
     for k, v in resample.last_execute_breakdown.items():
-        setup_breakdown[f"resample.{k}"] = round(v, 3)
+        # a program's capture under its own name, the stages as resample.*
+        setup_breakdown[k if k.endswith(".compile")
+                        else f"resample.{k}"] = round(v, 3)
     ref_wcs = resample.output_wcs
     out_shape = resample.output_shape
     # the default catalog on the device finder ('auto': on CUDA, as the
@@ -1455,8 +1445,8 @@ def align_images(
 
     def device_cutout_maps(blc, hw):
         """(E, n, hh, ww) cutout pixmaps on the device."""
-        return compute_cutout_pixmaps_device_stack(
-            [e.wcs for e in exps], ref_wcs, blc, hw, device=dev)
+        return _cutout_pixmaps_stack([e.wcs for e in exps], ref_wcs, blc,
+                                     hw, dev, timings=setup_breakdown)
 
     exp_data_t = ds if reuse_data else _stack_planes(rate_planes, shape0,
                                                       dev)
@@ -1495,13 +1485,14 @@ def align_images(
     seg_ok_t = to_dev(seg_ok, torch.bool)
 
     def stage(centers_, cpx, cpy, ids_, cat_, ok_, hw):
-        """Image cutouts, masks and segmentation masks of a cutout set."""
-        if seg_f_t is not None:
-            return _stage_inputs(exp_data_t, to_dev(centers_), seg_f_t, cpx,
-                                 cpy, ids_, cat_, ok_, hw, have_seg)
-        img_, msk_, seg_ = _stage_inputs(exp_data_t, to_dev(centers_), None,
-                                         cpx, cpy, ids_, cat_, ok_, hw, False)
-        if have_seg:
+        """Image cutouts, masks and segmentation masks of a cutout set:
+        the program ``device_stage``; under a spatial mesh the masks are
+        sampled from the bands by ``sample_spatial``, eagerly."""
+        img_, msk_, seg_ = _stage_device_inputs_aot(
+            exp_data_t, to_dev(centers_), seg_f_t, cpx, cpy, ids_, cat_, ok_,
+            cut_shape=hw, use_seg=have_seg and seg_f_t is not None,
+            timings=setup_breakdown)
+        if seg_f_t is None and have_seg:
             E_, N_ = cpx.shape[:2]
             sseg, _ = sample_spatial(
                 spatial, seg_planes[0].to(torch.float32),

@@ -14,7 +14,9 @@ exact tangent-plane homography -> pixel``:
   with the JAX package's operation order, so the grids never cross from
   the host;
   the align setup uses them on CUDA (``cutout_pixmaps='auto'``) and for
-  frames of at least :func:`device_pixmap_min_pixels` pixels;
+  frames of at least :func:`device_pixmap_min_pixels` pixels; the cutout
+  stack's evaluation is the setup program ``cutout_pixmaps_stack``
+  (``aot.get_executable``);
 * :func:`blot_image` / :func:`blot_cutout` sample a reference image at a
   pixmap, through kernel B2 (:mod:`subpixal_tpu_torch.kernels.blot`);
 * :func:`blot_measure` is the align iteration's measurement: blot the
@@ -29,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from .aot import get_executable
 from .cutout import Cutout
 from .kernels.blot import sample_cutouts
 from .kernels.measure import measure_window
@@ -332,20 +335,24 @@ def _to_device(params, device):
     return tuple(torch.as_tensor(p, device=device) for p in params)
 
 
-def _packs(wcs_list, to_wcs, device):
-    """(E, ...)-stacked parameter packs on ``device`` for a WCS list: one
-    pack for the whole list when every WCS shares one SIP and table
-    configuration (and parameter shapes), else one pack per WCS. Yields
-    ``(rows, pack, sip_mode, sip2_cfg)``."""
+def _stacked_wcs_params(wcs_list, to_wcs, device):
+    """``(params, modes)``: the parameter packs of a WCS list on
+    ``device``, one (E, ...)-stacked pack when every WCS shares one SIP
+    and table configuration (and parameter shapes), else one pack per WCS
+    (the JAX package takes per-frame programs then); ``modes`` holds each
+    pack's static ``(sip_mode, (sip2_mode, tab_modes))``. The packs follow
+    the list's order."""
     packs = [_device_wcs_params(w, to_wcs) for w in wcs_list]
     kinds = {(s1, s2, tuple(p.shape for p in pk)) for pk, s1, s2 in packs}
     groups = ([list(range(len(packs)))] if len(kinds) == 1
               else [[e] for e in range(len(packs))])
+    params, modes = [], []
     for rows in groups:
         first, sip_mode, sip2_cfg = packs[rows[0]]
-        stacked = [np.stack([packs[e][0][i] for e in rows])
-                   for i in range(len(first))]
-        yield rows, _to_device(stacked, device), sip_mode, sip2_cfg
+        params.append(_to_device([np.stack([packs[e][0][i] for e in rows])
+                                  for i in range(len(first))], device))
+        modes.append((sip_mode, sip2_cfg))
+    return tuple(params), tuple(modes)
 
 
 def _compose_params(params, u, v, sip_mode, sip2_cfg, nd):
@@ -389,17 +396,33 @@ def _cutout_core(params, blc, shape, sip_mode, sip2_cfg):
             torch.broadcast_to(py, out).contiguous())
 
 
-def _eval_stack(core, wcs_list, to_wcs, blc, shape, device):
-    """``core`` over a WCS list's packs (see :func:`_packs`), joined along
-    the exposure axis; ``blc`` holds host origins with a leading E axis."""
-    blc = np.asarray(blc, np.float32)
-    outs = [core(pk, torch.as_tensor(blc[rows], device=device), tuple(shape),
-                 sip_mode, sip2_cfg)
-            for rows, pk, sip_mode, sip2_cfg in _packs(wcs_list, to_wcs,
-                                                        device)]
+def _eval_packs(core, params, modes, blc, shape):
+    """``core`` over each pack with its rows of ``blc`` (a device tensor
+    with a leading E axis), joined along the exposure axis."""
+    outs, e0 = [], 0
+    for pk, (sip_mode, sip2_cfg) in zip(params, modes):
+        n = pk[0].shape[0]
+        outs.append(core(pk, blc[e0:e0 + n], tuple(shape), sip_mode,
+                         sip2_cfg))
+        e0 += n
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _pixmap_stack_core(params, *, shape, modes):
+    """(E, H, W) full-frame pixmap pairs of a stack's packs
+    (:func:`_stacked_wcs_params`)."""
+    E = sum(pk[0].shape[0] for pk in params)
+    blc = torch.zeros((E, 2), dtype=torch.float32, device=params[0][0].device)
+    return _eval_packs(_frame_core, params, modes, blc, shape)
+
+
+def _cutout_pixmaps_stack_core(params, blc, *, shape, modes):
+    """(E, N, h, w) per-cutout pixmap pairs of a stack's packs, ``blc``
+    (E, N, 2) (x0, y0) on the device: the program
+    ``cutout_pixmaps_stack``."""
+    return _eval_packs(_cutout_core, params, modes, blc, shape)
 
 
 def compute_pixmap_device(from_wcs: TanWCS, to_wcs: TanWCS,
@@ -412,8 +435,9 @@ def compute_pixmap_device(from_wcs: TanWCS, to_wcs: TanWCS,
     float32 ulp at 4096 px is ~0.5 mpix) — ample for drizzle DEPOSIT
     grids. Returns float32 (H, W) tensors on ``device``.
     """
-    px, py = _eval_stack(_frame_core, [from_wcs], to_wcs, [blc], shape,
-                         device)
+    params, modes = _stacked_wcs_params([from_wcs], to_wcs, device)
+    blc_t = torch.as_tensor(np.asarray([blc], np.float32), device=device)
+    px, py = _eval_packs(_frame_core, params, modes, blc_t, shape)
     return px[0], py[0]
 
 
@@ -422,8 +446,8 @@ def compute_pixmap_device_stack(wcs_list, to_wcs: TanWCS,
     """:func:`compute_pixmap_device` for a same-shape exposure stack:
     returns (E, H, W) pairs, from one evaluation when every WCS shares
     one SIP and table configuration, else from one per exposure."""
-    return _eval_stack(_frame_core, wcs_list, to_wcs,
-                       np.zeros((len(wcs_list), 2)), shape, device)
+    params, modes = _stacked_wcs_params(wcs_list, to_wcs, device)
+    return _pixmap_stack_core(params, shape=tuple(shape), modes=modes)
 
 
 def compute_cutout_pixmaps_device(from_wcs: TanWCS, to_wcs: TanWCS, blc,
@@ -439,8 +463,9 @@ def compute_cutout_pixmaps_device(from_wcs: TanWCS, to_wcs: TanWCS, blc,
     Jacobians are NOT derived from these grids: the align setup takes
     them from float64 host evaluations at the cutout centers.
     """
-    px, py = _eval_stack(_cutout_core, [from_wcs], to_wcs,
-                         np.asarray(blc, np.float32)[None], shape, device)
+    params, modes = _stacked_wcs_params([from_wcs], to_wcs, device)
+    blc_t = torch.as_tensor(np.asarray(blc, np.float32)[None], device=device)
+    px, py = _eval_packs(_cutout_core, params, modes, blc_t, shape)
     return px[0], py[0]
 
 
@@ -450,8 +475,22 @@ def compute_cutout_pixmaps_device_stack(wcs_list, to_wcs: TanWCS, blc,
     """:func:`compute_cutout_pixmaps_device` for a whole exposure stack:
     ``blc`` is (E, N, 2); returns (E, N, h, w) pairs, from one evaluation
     when every WCS shares one SIP and table configuration, else from one
-    per exposure."""
-    return _eval_stack(_cutout_core, wcs_list, to_wcs, blc, shape, device)
+    per exposure. The parameters are packed and copied to the device
+    here; the evaluation is the program ``cutout_pixmaps_stack``
+    (:func:`~subpixal_tpu_torch.aot.get_executable`)."""
+    return _cutout_pixmaps_stack(wcs_list, to_wcs, blc, shape, device)
+
+
+def _cutout_pixmaps_stack(wcs_list, to_wcs, blc, shape, device,
+                          timings=None):
+    """:func:`compute_cutout_pixmaps_device_stack`, the program's capture
+    time recorded in ``timings`` (``align_images``'s setup breakdown)."""
+    params, modes = _stacked_wcs_params(wcs_list, to_wcs, device)
+    blc_t = torch.as_tensor(np.asarray(blc, np.float32), device=device)
+    statics = dict(shape=tuple(shape), modes=modes)
+    exe = get_executable("cutout_pixmaps_stack", _cutout_pixmaps_stack_core,
+                         (params, blc_t), statics=statics, timings=timings)
+    return exe(params, blc_t)
 
 
 # --------------------------------------------------------------------- #

@@ -11,11 +11,17 @@ align loop's mask sampling.
 
 The JAX package has no Pallas kernel here, so this module is plain torch:
 ``sort``, ``cumsum``, ``searchsorted``, shifts, ``max_pool2d`` dilations
-and ``scatter_reduce``. JAX's ``lax.while_loop`` fixed points become host
-loops that test for convergence every few rounds (a fixed point does not
-move under another round, so the result is the same); ``lax.top_k``
-becomes a stable descending sort, which keeps its lower-index-first order
-among equal values.
+and ``scatter_reduce``. ``lax.top_k`` becomes a stable descending sort,
+which keeps its lower-index-first order among equal values. The flood
+fills' ``lax.while_loop`` becomes blocks of ``_CHECK_EVERY`` rounds that
+set a done flag on the device, read once a block
+(:func:`~subpixal_tpu_torch.aot.repeat_until`; a fixed point does not
+move under another round, so the result is the same). The ``peaks``
+method runs as the JAX package's named programs (``cat_count``,
+``cat_count_thr``, ``cat_find``, ``cat_peaks``, ``cat_remap``) through
+:func:`~subpixal_tpu_torch.aot.get_executable`: captured once a shape on
+a card, where nothing in them reads the host but the floods' flags.
+:func:`warm_compile` captures them for a shape ahead of time.
 
 Two methods (``find_sources_device(method=...)``):
 
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .aot import ensure_captured, get_executable, repeat_until
 from .catalogs import ImageCatalog, Table
 
 __all__ = ["sigma_clipped_stats_device", "label_components_device",
@@ -74,10 +81,12 @@ def sigma_clipped_stats_device(data, sigma: float = 3.0, maxiters: int = 5,
     finite = torch.isfinite(x)
     m = finite.sum()                                   # finite count
     s = torch.sort(torch.where(finite, x, torch.inf)).values  # finite first
+    # (indices are 0-d device tensors: torch.take reads with them on the
+    # device, where s[i] would copy i to the host first)
     # prefix sums of MEDIAN-CENTRED values: f32 sums over 10^7 elements
     # would otherwise lose the statistics to cancellation under a large
     # background level
-    med0 = s[torch.clamp(m // 2, max=s.numel() - 1)]
+    med0 = torch.take(s, torch.clamp(m // 2, max=s.numel() - 1))
     sz = torch.where(torch.isfinite(s), s - med0, 0.0)
     c1 = torch.cumsum(sz, 0)
     c2 = torch.cumsum(sz * sz, 0)
@@ -85,12 +94,15 @@ def sigma_clipped_stats_device(data, sigma: float = 3.0, maxiters: int = 5,
     def seg_stats(lo, hi):
         cnt = torch.clamp(hi - lo, min=1)
         prev = torch.clamp(lo - 1, min=0)
-        s1 = c1[hi - 1] - torch.where(lo > 0, c1[prev], 0.0)
-        s2 = c2[hi - 1] - torch.where(lo > 0, c2[prev], 0.0)
+        s1 = torch.take(c1, hi - 1) - torch.where(lo > 0, torch.take(c1, prev),
+                                                  0.0)
+        s2 = torch.take(c2, hi - 1) - torch.where(lo > 0, torch.take(c2, prev),
+                                                  0.0)
         mean_c = s1 / cnt
         var = torch.clamp(s2 / cnt - mean_c * mean_c, min=0.0)
         # np.median parity: the mean of the two middle order statistics
-        med = 0.5 * (s[lo + (cnt - 1) // 2] + s[lo + cnt // 2])
+        med = 0.5 * (torch.take(s, lo + (cnt - 1) // 2)
+                     + torch.take(s, lo + cnt // 2))
         return med0 + mean_c, med, torch.sqrt(var)
 
     def search(v, right):
@@ -119,17 +131,30 @@ def _shift(a, dy, dx, fill):
 
 
 def _fixed_point(step, x, max_rounds=None):
-    """Apply ``step`` until ``x`` stops changing (tested every
-    ``_CHECK_EVERY`` rounds) or ``max_rounds`` rounds have run."""
-    done = 0
-    while max_rounds is None or done < max_rounds:
-        n = _CHECK_EVERY if max_rounds is None else min(
-            _CHECK_EVERY, max_rounds - done)
-        for _ in range(n):
-            prev, x = x, step(x)
-        done += n
-        if torch.equal(x, prev):
-            break
+    """Apply ``step`` to ``x`` until it stops changing or ``max_rounds``
+    rounds have run: blocks of ``_CHECK_EVERY`` rounds, ``x`` updated in
+    place, each block's last round setting a done flag on the device that
+    the host reads once a block (:func:`aot.repeat_until`). A round after
+    the fixed point changes nothing, so the rounds a block runs past it do
+    not change the result."""
+    if max_rounds == 0:
+        return x
+    # a bound takes blocks that divide it, so that exactly that many run
+    n = _CHECK_EVERY if max_rounds is None else next(
+        k for k in range(min(_CHECK_EVERY, max_rounds), 0, -1)
+        if max_rounds % k == 0)
+    x = x.clone()
+    done = torch.zeros((), dtype=torch.bool, device=x.device)
+
+    def block():
+        for i in range(n):
+            nxt = step(x)
+            if i == n - 1:
+                done.copy_((nxt == x).all())
+            x.copy_(nxt)
+
+    repeat_until(block, done, None if max_rounds is None
+                 else max_rounds // n)
     return x
 
 
@@ -273,10 +298,24 @@ def _candidate_mask(img, threshold, npixels):
 
 
 def _auto_threshold(img, nsigma):
-    """median + nsigma * std of the sigma-clipped statistics (f32)."""
+    """median + nsigma * std of the sigma-clipped statistics (f32; a
+    Python float operand is taken as float32, as ``jnp.float32(nsigma)``)."""
     _, med, std = sigma_clipped_stats_device(img)
-    return med + torch.tensor(nsigma, dtype=torch.float32,
-                              device=img.device) * std
+    return med + std * float(nsigma)
+
+
+def _count_candidates_auto(img, *, nsigma, npixels):
+    """The program ``cat_count``: (candidate count, derived threshold),
+    the first stage of the two-stage finder, whose small result sizes the
+    second stage's candidate batch."""
+    thr = _auto_threshold(img, nsigma)
+    return _candidate_mask(img, thr, npixels).sum(), thr
+
+
+def _count_candidates(img, threshold, *, npixels):
+    """The program ``cat_count_thr``: the candidate count at a given
+    threshold (a 0-d float32 tensor)."""
+    return _candidate_mask(img, threshold, npixels).sum()
 
 
 def _top(score, k):
@@ -289,7 +328,8 @@ def _top(score, k):
 def _find_sources_peaks_core(img, threshold, *, max_sources, npixels,
                              window, deblend_nthresh=32,
                              deblend_cont=0.005):
-    """Detection, ``peaks`` method (module docstring).
+    """Detection, ``peaks`` method (module docstring): the program
+    ``cat_peaks``.
 
     Returns ``(seg_rank int32 (H, W), packed f32 (14, max_sources),
     n_cand)``. ``seg_rank`` holds 1-based brightness ranks (1 brightest,
@@ -487,10 +527,101 @@ def _find_sources_peaks_core(img, threshold, *, max_sources, npixels,
     return seg, packed, n_cand
 
 
+def _find_sources_peaks_fused(img, *, nsigma, max_sources, npixels, window,
+                              deblend_nthresh=32, deblend_cont=0.005):
+    """The program ``cat_find``: the sigma-clipped threshold and the peaks
+    detection in one program, the threshold never read by the host.
+    Returns (seg_rank, packed, n_cand, threshold)."""
+    thr = _auto_threshold(img, nsigma)
+    seg, packed, n_cand = _find_sources_peaks_core(
+        img, thr, max_sources=max_sources, npixels=npixels, window=window,
+        deblend_nthresh=deblend_nthresh, deblend_cont=deblend_cont)
+    return seg, packed, n_cand, thr
+
+
+def _remap_ranks(seg, lut):
+    """The program ``cat_remap``: rank plane -> catalog-id plane (0 stays
+    the background)."""
+    return lut[seg.long()]
+
+
 def _peaks_dims(shape, max_sources, window):
     """(B, win) actually run for an (H, W) image."""
     H, W = shape
     return int(min(max_sources, H * W)), max(2, min(window, H, W))
+
+
+def _core_statics(shape, max_sources, npixels, window, deblend_nthresh,
+                  deblend_cont) -> dict:
+    """The statics of ``cat_peaks`` (and, with ``nsigma``, ``cat_find``)
+    for an (H, W) image: the batch and window actually run."""
+    B, win = _peaks_dims(shape, max_sources, window)
+    return dict(max_sources=B, npixels=int(npixels), window=win,
+                deblend_nthresh=int(deblend_nthresh),
+                deblend_cont=float(deblend_cont))
+
+
+def _warm(name, fn, args, statics=None):
+    """The executable of program ``name`` for ``args``, captured on a card
+    by a first call on ``args`` (:func:`aot.ensure_captured`)."""
+    exe = get_executable(name, fn, args, statics=statics)
+    ensure_captured(exe, *args)
+    return exe
+
+
+def _peaks_executables(shape, *, nsigma: float, npixels: int, window: int,
+                       max_sources: int, deblend_nthresh: int,
+                       deblend_cont: float, want_fused: bool = True,
+                       device="cuda"):
+    """The (fused, peaks, remap) executables for an (H, W) image on
+    ``device`` (``fused`` None unless ``want_fused``): the programs
+    ``cat_find`` (the threshold derived inside), ``cat_peaks`` (an
+    explicit threshold) and ``cat_remap``, from
+    :func:`~subpixal_tpu_torch.aot.get_executable`, each captured on a
+    card by a first call on zero inputs of the shape."""
+    H, W = shape
+    core = _core_statics(shape, max_sources, npixels, window,
+                         deblend_nthresh, deblend_cont)
+    img = torch.zeros((H, W), dtype=torch.float32, device=device)
+    thr = torch.zeros((), dtype=torch.float32, device=device)
+    fused = None
+    if want_fused:
+        fused = _warm("cat_find", _find_sources_peaks_fused, (img,),
+                      dict(nsigma=float(nsigma), **core))
+    peaks = _warm("cat_peaks", _find_sources_peaks_core, (img, thr), core)
+    remap = _warm(
+        "cat_remap", _remap_ranks,
+        (torch.zeros((H, W), dtype=torch.int32, device=device),
+         torch.zeros(core["max_sources"] + 1, dtype=torch.int32,
+                     device=device)))
+    return fused, peaks, remap
+
+
+def warm_compile(shape, *, nsigma: float = 3.0, npixels: int = 5,
+                 window: int = 32, max_sources: int = 8192,
+                 deblend_nthresh: int = 32, deblend_cont: float = 0.005,
+                 device="cuda") -> None:
+    """Capture the ``peaks`` finder's programs for an (H, W) image on
+    ``device`` ahead of its first call, as the JAX package compiles them:
+    with more than 256 candidate slots, the counting program and the
+    second stage at the 128 and 256 buckets (what a scene of up to ~250
+    candidates takes); else the programs at ``max_sources``. Each is
+    captured by a first call on zero inputs; a program already captured
+    is not run. ``align_images`` calls it before its first deposit. On
+    the CPU it only fills the cache with the plain functions."""
+    B_full, _ = _peaks_dims(shape, max_sources, window)
+    kw = dict(nsigma=nsigma, npixels=npixels, window=window,
+              deblend_nthresh=deblend_nthresh, deblend_cont=deblend_cont,
+              device=device)
+    if B_full > 256:
+        _warm("cat_count", _count_candidates_auto,
+              (torch.zeros(tuple(shape), dtype=torch.float32,
+                           device=device),),
+              dict(nsigma=float(nsigma), npixels=int(npixels)))
+        for b in (128, 256):
+            _peaks_executables(shape, max_sources=b, want_fused=False, **kw)
+    else:
+        _peaks_executables(shape, max_sources=max_sources, **kw)
 
 
 def find_sources_device(image, threshold: float | None = None,
@@ -533,27 +664,35 @@ def find_sources_device(image, threshold: float | None = None,
         # holds every candidate, at the same threshold); the deblend's
         # (levels, B, win, win) floods stay small
         if threshold is None:
-            thr = _auto_threshold(img, nsigma)
-            cnt = _candidate_mask(img, thr, npixels).sum()
+            cnt, thr = get_executable(
+                "cat_count", _count_candidates_auto, (img,),
+                statics=dict(nsigma=float(nsigma), npixels=int(npixels)))(img)
             n_est, thr_v = torch.stack([cnt.to(torch.float64),
                                         thr.to(torch.float64)]).tolist()
             threshold = thr_v        # the f32 value, exactly
         else:
-            n_est = int(_candidate_mask(
-                img, torch.tensor(threshold, dtype=torch.float32,
-                                  device=dev), npixels).sum())
+            thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+            n_est = int(get_executable(
+                "cat_count_thr", _count_candidates, (img, thr),
+                statics=dict(npixels=int(npixels)))(img, thr))
         b_eff = 128
         while b_eff < n_est + 8:
             b_eff *= 2
         if b_eff < B:
             max_sources = b_eff
             B, win = _peaks_dims((H, W), max_sources, window)
-    thr = (_auto_threshold(img, nsigma) if threshold is None
-           else torch.tensor(threshold, dtype=torch.float32, device=dev))
-    seg_rank, packed, _ = _find_sources_peaks_core(
-        img, thr, max_sources=B, npixels=npixels, window=win,
-        deblend_nthresh=int(deblend_nthresh),
-        deblend_cont=float(deblend_cont))
+    # the programs warm_compile captures for this shape, on this image
+    core = _core_statics((H, W), max_sources, npixels, window,
+                         deblend_nthresh, deblend_cont)
+    if threshold is None:  # one program: threshold and detection
+        seg_rank, packed, _, _ = get_executable(
+            "cat_find", _find_sources_peaks_fused, (img,),
+            statics=dict(nsigma=float(nsigma), **core))(img)
+    else:
+        thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+        seg_rank, packed, _ = get_executable(
+            "cat_peaks", _find_sources_peaks_core, (img, thr),
+            statics=core)(img, thr)
     arr = packed.cpu().numpy()     # the one device -> host table copy
     keep = arr[0] > 0
     n_cand = int(arr[10, 0])
@@ -592,7 +731,9 @@ def find_sources_device(image, threshold: float | None = None,
     # rank plane -> catalog-id plane (kept ranks only)
     lut = np.zeros(B + 1, np.int32)
     lut[sl + 1] = ids
-    return cat, torch.as_tensor(lut, device=dev)[seg_rank.long()]
+    lut_t = torch.as_tensor(lut, device=dev)
+    return cat, get_executable("cat_remap", _remap_ranks,
+                               (seg_rank, lut_t))(seg_rank, lut_t)
 
 
 def _find_sources_ccl(img, thr, npixels, connectivity, max_sources):

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own, for ``sm_90a``, into a
 shared library with a plain C interface (no PyTorch headers: a build
-takes seconds, not minutes). Libraries go to the package's ``build/``
-directory under a name keyed by a hash of the source and the flags, so a
-stale library is never loaded. Nothing is built at import time: the first
+takes seconds, not minutes). Libraries go to ``aot.aot_dir()`` (the
+package's ``build/`` directory, or ``SUBPIXAL_TPU_AOT_DIR``) under a name
+keyed by a hash of the source and the flags, so a stale library is never
+loaded. Nothing is built at import time: the first
 CUDA call of a wrapper builds what it needs, and :func:`build` starts one
 ``nvcc`` for every missing library at once.
 """
@@ -21,7 +22,6 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-_BUILD = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -54,7 +54,9 @@ def library_path(name: str) -> str:
     with open(src, "rb") as f:
         tag = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD, f"{name}_{tag}.so")
+    from ..aot import aot_dir
+
+    return os.path.join(aot_dir(), f"{name}_{tag}.so")
 
 
 def build(names=tuple(SOURCES)) -> dict[str, float]:
@@ -64,7 +66,6 @@ def build(names=tuple(SOURCES)) -> dict[str, float]:
     already built). Raises ``RuntimeError`` with nvcc's output when a
     build fails.
     """
-    os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)

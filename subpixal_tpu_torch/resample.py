@@ -13,8 +13,10 @@ Every deposit goes through kernel B1
 A same-shape stack of more than one exposure, in the device-pixmap regime
 (:func:`~subpixal_tpu_torch.blot.device_pixmap_min_pixels`: 256² on CUDA,
 2048² on the CPU), is deposited by ONE launch that keeps each exposure's
-(Ho, Wo) planes; otherwise each exposure is deposited on its own, through
-host float64 pixmaps below that size and float32 device pixmaps from it.
+(Ho, Wo) planes, inside the setup program ``deposit_stack``
+(``aot.get_executable``: a CUDA graph replayed on a card); otherwise
+each exposure is deposited on its own, through host float64 pixmaps
+below that size and float32 device pixmaps from it.
 
 Under ``spatial_mesh=`` the accumulators and the per-exposure planes are
 this rank's row band of the output (:mod:`.parallel.spatial`): the same
@@ -37,8 +39,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .blot import (compute_pixmap, compute_pixmap_device,
-                   compute_pixmap_device_stack, device_pixmap_min_pixels)
+from .aot import get_executable
+from .blot import (_pixmap_stack_core, _stacked_wcs_params, compute_pixmap,
+                   compute_pixmap_device, device_pixmap_min_pixels)
 from .kernels import use_pallas as _use_pallas
 from .kernels.drizzle import drizzle_deposit, drizzle_deposit_stack
 from .ops.drizzle import drizzle_combine
@@ -107,6 +110,22 @@ def nanmedian(x: torch.Tensor, dim: int | None = None) -> torch.Tensor:
     hi = s.gather(dim, torch.clamp(n // 2, min=0))
     med = torch.where(n > 0, (lo + hi) / 2, torch.full_like(lo, torch.nan))
     return med.squeeze(dim)
+
+
+def _deposit_stack_core(params, data, wht, scales, *, shape, modes, oshape,
+                        pixfrac, kernel, ratios, use_pallas):
+    """The program ``deposit_stack``: the stack's pixmaps from its packed
+    WCS parameters (``blot._stacked_wcs_params``), ONE per-plane B1
+    launch, each exposure's planes times its weight scale, and the sums
+    over the exposures. Returns (sci planes, wht planes, sci, wht)."""
+    px, py = _pixmap_stack_core(params, shape=shape, modes=modes)
+    s, w, _ = drizzle_deposit_stack(data, wht, px, py, oshape,
+                                    pixfrac=pixfrac, pscale_ratio=ratios,
+                                    kernel=kernel, per_plane=True,
+                                    use_pallas=use_pallas)
+    sc = scales[:, None, None]
+    s, w = s * sc, w * sc
+    return s, w, s.sum(0), w.sum(0)
 
 
 def _exposure_stack_key(exposures):
@@ -551,14 +570,17 @@ class Drizzle(Resample):
             w = w * np.float32(scale)
         return s, w
 
-    def _execute_stack(self, _mark):
+    def _execute_stack(self, _mark, bd):
         """The whole stack in ONE deposit launch that keeps each
-        exposure's planes. Returns (sci_planes, wht_planes, sci, wht) or
-        None when the stack is not eligible: one exposure, shapes that
-        differ, frames below the device-pixmap size, or pixmaps beyond the
-        memory gate. (The JAX package also needs one SIP structure across
-        the stack; the port evaluates mixed stacks per group.) ``_mark``
-        records each stage's time."""
+        exposure's planes: the program ``deposit_stack``
+        (:func:`_deposit_stack_core`, eagerly under a spatial mesh), its
+        inputs stacked and copied to the device first. Returns
+        (sci_planes, wht_planes, sci, wht) or None when the stack is not
+        eligible: one exposure, shapes that differ, frames below the
+        device-pixmap size, or pixmaps beyond the memory gate. (The JAX
+        package also needs one SIP structure across the stack; the port
+        evaluates mixed stacks per group.) ``_mark`` records each stage's
+        time, and the program's capture lands in ``bd``."""
         exps = self.exposures
         E = len(exps)
         if E < 2 or len({tuple(e.data.shape) for e in exps}) != 1:
@@ -575,25 +597,30 @@ class Drizzle(Resample):
         wht = (None if all(w is None for w in whts) else _stack_planes(
             [1.0 if w is None else w for w in whts], shape, self.device))
         _mark("h2d_stack")
-        px, py = compute_pixmap_device_stack([e.wcs for e in exps],
-                                             self._owcs, shape,
-                                             device=self.device)
-        _mark("pixmaps")
+        params, modes = _stacked_wcs_params([e.wcs for e in exps],
+                                            self._owcs, self.device)
+        sc = torch.as_tensor(np.asarray(scales, np.float32),
+                             device=self.device)
+        _mark("wcs_params")
         ratios = tuple(round(float(e.wcs.pscale / self._owcs.pscale), 6)
                        for e in exps)
-        kw = dict(pixfrac=self.pixfrac, pscale_ratio=ratios,
-                  kernel=self.kernel, per_plane=True)
+        statics = dict(shape=shape, modes=modes, oshape=tuple(self._oshape),
+                       pixfrac=self.pixfrac, kernel=self.kernel,
+                       ratios=ratios, use_pallas=self.use_pallas)
         if self.spatial_mesh is None:
-            s, w, _ = drizzle_deposit_stack(data, wht, px, py, self._oshape,
-                                            **kw, use_pallas=self.use_pallas)
-        else:  # the planes of this rank's band
-            s, w = drizzle_deposit_spatial(self.spatial_mesh, data, wht, px,
-                                           py, self._oshape, **kw,
-                                           use_pallas=self.use_pallas)
-        sc = torch.as_tensor(np.asarray(scales, np.float32),
-                             device=self.device)[:, None, None]
-        s, w = _agree(self.spatial_mesh, s * sc, w * sc)
-        out = (s, w, s.sum(0), w.sum(0))
+            args = (params, data, wht, sc)
+            out = get_executable("deposit_stack", _deposit_stack_core, args,
+                                 statics=statics, timings=bd)(*args)
+        else:  # the planes of this rank's band, eagerly (_agree gathers)
+            px, py = _pixmap_stack_core(params, shape=shape, modes=modes)
+            s, w = drizzle_deposit_spatial(
+                self.spatial_mesh, data, wht, px, py, self._oshape,
+                pixfrac=self.pixfrac, pscale_ratio=ratios,
+                kernel=self.kernel, per_plane=True,
+                use_pallas=self.use_pallas)
+            s, w = _agree(self.spatial_mesh, s * sc[:, None, None],
+                          w * sc[:, None, None])
+            out = (s, w, s.sum(0), w.sum(0))
         _mark("deposit_stack")
         # the rate-data stack stays for the align loop's staging, keyed on
         # the exposures' identities (any .data rebinding invalidates it)
@@ -623,7 +650,7 @@ class Drizzle(Resample):
         _mark("output_grid")
         self._per_exp.clear()
         self._data_stack = self._data_stack_key = None  # free stale memory
-        out = self._execute_stack(_mark)
+        out = self._execute_stack(_mark, bd)
         if out is not None:
             sci_s, wht_s, sci, wht = out
             for e, exp in enumerate(self.exposures):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .aot import get_executable
 from .resample import Exposure
 from .wcs import TanWCS
 
@@ -117,20 +118,37 @@ def _render_device(device) -> torch.device | None:
 
 def _render_stack_device(shape, stars, shifts, amp, sigma, noise, R, r_cut,
                          seed, device) -> torch.Tensor:
-    """(E, H, W) float32 star-field frames rendered on ``device``, as the
-    JAX package's device renderer: each star's (2R+1)^2 Gaussian patch
-    (its sub-pixel offset plus the frame's planted shift, in float32)
-    scatter-added at its integer center into the flattened frames, the
-    cells off the frame dropped."""
-    E = shifts.shape[0]
-    H, W = shape
+    """(E, H, W) float32 star-field frames rendered on ``device``: the star
+    data copied there, then the program ``render_stack``
+    (:func:`_render_core`, through ``aot.get_executable``), whose noise
+    comes from a ``torch.Generator`` on ``device`` seeded with ``seed``."""
     cx = np.round(stars[:, 0]).astype(np.int64)
     cy = np.round(stars[:, 1]).astype(np.int64)
-    fx = torch.as_tensor((stars[:, 0] - cx).astype(np.float32), device=device)
-    fy = torch.as_tensor((stars[:, 1] - cy).astype(np.float32), device=device)
-    sh = torch.as_tensor(shifts.astype(np.float32), device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
+    args = (gen, torch.as_tensor(shifts.astype(np.float32), device=device),
+            torch.as_tensor((stars[:, 0] - cx).astype(np.float32),
+                            device=device),
+            torch.as_tensor((stars[:, 1] - cy).astype(np.float32),
+                            device=device),
+            torch.as_tensor(cx, device=device),
+            torch.as_tensor(cy, device=device))
+    statics = dict(E=int(shifts.shape[0]), H=int(shape[0]), W=int(shape[1]),
+                   amp=float(amp), sigma=float(sigma), noise=float(noise),
+                   R=int(R), r_cut=float(r_cut))
+    return get_executable("render_stack", _render_core, args,
+                          statics=statics)(*args)
+
+
+def _render_core(gen, sh, fx, fy, cx, cy, *, E, H, W, amp, sigma, noise, R,
+                 r_cut):
+    """The program ``render_stack``, as the JAX package's device
+    renderer: noise from ``gen``, then each star's (2R+1)^2 Gaussian patch
+    (its sub-pixel offset ``fx``, ``fy`` plus the frame's planted shift
+    ``sh``, in float32) added at its integer center ``cx``, ``cy`` into
+    the flattened frames; a patch's cells off the frame add 0 (at a
+    clamped cell), where the JAX package drops them."""
+    device = sh.device
     frames = torch.randn((E, H, W), generator=gen, device=device,
                          dtype=torch.float32) * np.float32(noise)
     off = torch.arange(-R, R + 1, device=device)
@@ -139,19 +157,19 @@ def _render_stack_device(shape, stars, shifts, amp, sigma, noise, R, r_cut,
     ddy = fy[None, :] + sh[:, 1:2]
     r2 = ((p[None, None, None, :] - ddx[..., None, None]) ** 2
           + (p[None, None, :, None] - ddy[..., None, None]) ** 2)
-    patch = torch.where(r2 < r_cut,
+    rows = cy[:, None] + off[None]                       # (S, P)
+    cols = cx[:, None] + off[None]
+    inside = (((rows >= 0) & (rows < H))[:, :, None]
+              & ((cols >= 0) & (cols < W))[:, None, :])      # (S, P, P)
+    patch = torch.where((r2 < r_cut) & inside,
                         np.float32(amp) * torch.exp(
                             -r2 / np.float32(2 * sigma * sigma)),
                         torch.zeros((), device=device))  # (E, S, P, P)
-    rows = torch.as_tensor(cy, device=device)[:, None] + off[None]  # (S, P)
-    cols = torch.as_tensor(cx, device=device)[:, None] + off[None]
-    inside = (((rows >= 0) & (rows < H))[:, :, None]
-              & ((cols >= 0) & (cols < W))[:, None, :])      # (S, P, P)
-    cell = rows[:, :, None] * W + cols[:, None, :]
-    flat = (torch.arange(E, device=device)[:, None] * (H * W)
-            + cell[inside][None])                            # (E, K)
-    frames.view(-1).index_add_(0, flat.reshape(-1),
-                               patch[:, inside].reshape(-1))
+    cell = (rows.clamp(0, H - 1)[:, :, None] * W
+            + cols.clamp(0, W - 1)[:, None, :])              # (S, P, P)
+    flat = (torch.arange(E, device=device)[:, None, None, None] * (H * W)
+            + cell[None])                                    # (E, S, P, P)
+    frames.view(-1).index_add_(0, flat.reshape(-1), patch.reshape(-1))
     return frames
 
 

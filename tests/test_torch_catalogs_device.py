@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from subpixal_tpu.catalogs import device as J
+from subpixal_tpu_torch import aot
 from subpixal_tpu_torch import catalogs_device as T
 
 torch.set_num_threads(2)
@@ -270,6 +271,8 @@ def test_two_stage_sizing_buckets_the_batch(monkeypatch):
         return core(img, thr, **kw)
 
     monkeypatch.setattr(T, "_find_sources_peaks_core", spy)
+    # a program cached before the patch would call the unpatched core
+    monkeypatch.setattr(aot, "_MEM", {})
     cat, _ = T.find_sources_device(torch.from_numpy(_field()),
                                    threshold=12.0)
     assert seen == [128] and len(cat) == 12

@@ -835,8 +835,8 @@ def test_step_reads_nothing_from_the_host_on_card(card, monkeypatch):
 def test_failed_capture_raises_and_runs_nothing_eagerly(card):
     """A step that reads the host runs eagerly once (the warm-up), then
     its capture raises: nothing retries it eagerly or on the CPU, nothing
-    is cached, and the launch counts keep none of the capture's wrapper
-    calls."""
+    is cached, the launch counts keep none of the capture's wrapper
+    calls, and the default generator draws again after."""
     from subpixal_tpu_torch.align import _fixed_point
 
     calls = []
@@ -857,6 +857,7 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(card):
     assert calls == [False, True]
     assert kernels.LAUNCHES["drizzle_deposit"] == 1
     assert not align_mod._LOOP_CACHE
+    torch.rand(2, device=card)  # the default generator draws again
 
 
 @pytest.mark.cuda
@@ -1855,3 +1856,263 @@ def test_spatial_align_on_2d_mesh(card, dims):
                                  "measure_displacement": n}
         assert np.abs(np.asarray(r["shifts"]) - one.shifts).max() < 2e-3
     assert pairwise_shift_errors(recs[0]["shifts"], planted) < 0.005
+
+
+# --------------------------------------------------------------------- #
+# the setup programs (aot.get_executable): captured, cached, replayed
+# --------------------------------------------------------------------- #
+
+#: each program's bar between its replay and its eager run: B1's atomics
+#: (deposit_stack) and index_add_'s (render_stack) sum in an order that
+#: changes from run to run; the programs that derive the finder's
+#: threshold (cat_count, cat_find) take the finder's bar on the card
+#: (``_finder_close``): the statistics' float32 prefix sums (cumsum on the
+#: card) may round the threshold otherwise from run to run; every other
+#: program is exact
+_PROGRAM_TOL = {"deposit_stack": REL_TOL, "render_stack": REL_TOL}
+_FINDER_BAR = ("cat_count", "cat_find")
+
+
+def _finder_close(g, w):
+    """One output of a finder program against another run's: the packed
+    table's flags, areas, bboxes, counts and peak pixels equal, the kept
+    sources' positions within 1e-4 px and fluxes and peaks within 1e-5
+    relative; a threshold within 1e-5 relative; anything else equal."""
+    if g.dim() == 2 and g.shape[0] == 14 and g.is_floating_point():
+        exact = [0, 1, 6, 7, 8, 9, 10, 11, 12, 13]
+        kept = w[0] > 0
+        return (torch.equal(g[exact], w[exact])
+                and bool(((g[3:5] - w[3:5])[:, kept].abs() <= 1e-4).all())
+                and bool(((g[(2, 5),] - w[(2, 5),])[:, kept].abs()
+                          <= 1e-5 * w[(2, 5),][:, kept].abs()).all()))
+    if g.is_floating_point() and g.dim() == 0:
+        return abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
+    return torch.equal(g, w)
+
+
+def _leaves(tree):
+    """The leaves of a program's argument or result tree."""
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    if isinstance(tree, dict):
+        return [x for t in tree.values() for x in _leaves(t)]
+    return [tree]
+
+
+def _fresh(tree):
+    """``tree`` with each generator a new copy of its state."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fresh(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Generator):
+        g = torch.Generator(device=tree.device)
+        g.set_state(tree.get_state())
+        return g
+    return tree
+
+
+def _recorded_programs(dev, monkeypatch):
+    """Every setup program the new path's setup runs on a 3 x 256² scene
+    (rendered on the card), the finder's fused and explicit-threshold
+    programs, as (name, fn, args, statics), one a name, shapes and
+    statics (the last call of each: warm_compile's zero inputs give way
+    to the path's own), collected by a spy on ``get_executable`` where
+    each module imports it."""
+    from subpixal_tpu_torch import aot, blot, catalogs_device, resample
+    from subpixal_tpu_torch import testing
+
+    calls = []
+    real = aot.get_executable
+
+    def spy(name, fn, args, *, statics=None, key_extra=(), timings=None):
+        calls.append((name, fn, _fresh(args), dict(statics or {})))
+        return real(name, fn, args, statics=statics, key_extra=key_extra,
+                    timings=timings)
+
+    with monkeypatch.context() as m:
+        for mod in (align_mod, blot, catalogs_device, resample, testing):
+            m.setattr(mod, "get_executable", spy)
+        exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                 seed=5, device=dev)
+        res = align_images(exposures=exps, device=dev,
+                           **dict(_MESH_KW, max_iterations=1))
+        img = res.drizzle.exposures[0].data
+        catalogs_device.find_sources_device(img, max_sources=256)
+        catalogs_device.find_sources_device(img, threshold=1.0)
+    progs = {}
+    for name, fn, args, statics in calls:
+        sig = tuple((tuple(a.shape), a.dtype) for a in _leaves(args)
+                    if isinstance(a, torch.Tensor))
+        progs[(name, repr(sorted(statics.items())), sig)] = (
+            name, fn, args, statics)
+    return list(progs.values())
+
+
+def _kernels_ran(prof) -> dict:
+    """B1, B2 and B3 kernels a profiler run saw, by wrapper name."""
+    ran = {k: 0 for k in kernels.LAUNCHES}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        for k, pat in _KERNEL_NAMES.items():
+            if re.search(pat, e.key):
+                ran[k] += e.count
+    return ran
+
+
+@pytest.mark.cuda
+def test_every_setup_program_captures_hits_and_replays_eagerly(
+        card, monkeypatch):
+    """Each program of the setup (deposit_stack, cutout_pixmaps_stack,
+    device_stage, cat_count, cat_count_thr, cat_peaks, cat_find,
+    cat_remap, render_stack): the first call runs it eagerly and captures
+    it (a ``{name}.compile`` timing, CUDA graphs; the launches it counts
+    are the kernels the profiler saw), the second ``get_executable`` is a
+    hit (the same executable, no timing), and the replay equals the
+    eager function (exactly; B1's and index_add_'s atomics within
+    REL_TOL, the derived-threshold programs by the finder's bar). B1
+    launches once a deposit_stack replay, counted at the replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from subpixal_tpu_torch import aot
+
+    progs = _recorded_programs(card, monkeypatch)
+    names = {p[0] for p in progs}
+    assert names == {"deposit_stack", "cutout_pixmaps_stack", "device_stage",
+                     "cat_count", "cat_count_thr", "cat_peaks", "cat_find",
+                     "cat_remap", "render_stack"}, names
+    for name, fn, args, statics in progs:
+        monkeypatch.setattr(aot, "_MEM", {})
+        t = {}
+        exe = aot.get_executable(name, fn, _fresh(args), statics=statics,
+                                 timings=t)
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            exe(*_fresh(args))
+            torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == _kernels_ran(prof), name
+        assert exe.steps and f"{name}.compile" in t, name
+        t.clear()
+        assert aot.get_executable(name, fn, _fresh(args), statics=statics,
+                                  timings=t) is exe and not t
+        kernels.reset_launch_counts()
+        got = exe(*_fresh(args))
+        assert kernels.LAUNCHES == exe.launches
+        want = fn(*_fresh(args), **statics)
+        for g, w in zip(_leaves(got), _leaves(want)):
+            if name in _PROGRAM_TOL:
+                assert _close(g, w), name
+            elif name in _FINDER_BAR:
+                assert _finder_close(g, w), name
+            else:
+                assert torch.equal(g, w), name
+        if name == "deposit_stack":
+            assert exe.launches["drizzle_deposit"] == 1
+        else:
+            assert not any(exe.launches.values()), name
+
+
+@pytest.mark.cuda
+def test_capturing_call_launches_match_the_profiler_on_card(card,
+                                                           monkeypatch):
+    """An align call that captures every setup program and the loop from
+    empty caches counts as many B1, B2 and B3 launches as the kernels
+    ``torch.profiler`` saw the card run: the programs' and the loop's
+    first, eager calls count where they launch, their captures not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from subpixal_tpu_torch import aot
+
+    exps, _ = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12, seed=5)
+    kw = dict(exposures=exps, device="cuda", max_iterations=6,
+              eps_shift=0.0, **_GRAPH_PATHS["new"])
+    align_images(**kw)  # builds the kernels
+    monkeypatch.setattr(aot, "_MEM", {})
+    align_mod._LOOP_CACHE.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = align_images(**kw)
+        torch.cuda.synchronize()
+    assert res.setup_breakdown["loop_graphs"] == 1
+    assert "deposit_stack.compile" in res.setup_breakdown
+    assert kernels.LAUNCHES["drizzle_deposit"] == (
+        1 + res.setup_breakdown["loop_steps"])
+    assert _kernels_ran(prof) == dict(kernels.LAUNCHES), kernels.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_program_call_reads_nothing_from_the_host(card, monkeypatch):
+    """A replayed call of a captured program without a flood (copy in,
+    replay, copy out) runs under ``set_sync_debug_mode('error')``; the
+    finder's detection reads only its floods' flags, one a block."""
+    from subpixal_tpu_torch import aot
+
+    monkeypatch.setattr(aot, "_MEM", {})
+    for name, fn, args, statics in _recorded_programs(card, monkeypatch):
+        exe = aot.get_executable(name, fn, args, statics=statics)
+        aot.ensure_captured(exe, *_fresh(args))
+        if any(s.done is not None for s in exe.steps):
+            reads = exe.host_reads
+            exe(*_fresh(args))
+            assert exe.host_reads > reads, name
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            exe(*_fresh(args))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_program_that_reads_the_host_raises_and_caches_nothing(
+        card, monkeypatch):
+    """A program with an ``.item()`` inside: its first call runs it
+    eagerly, then its capture raises; nothing is cached, nothing runs it
+    eagerly instead, and the default generator draws again after."""
+    from subpixal_tpu_torch import aot
+
+    monkeypatch.setattr(aot, "_MEM", {})
+    calls = []
+
+    def bad(x):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return x * float(x.sum().item())
+
+    exe = aot.get_executable("bad", bad, (torch.ones(4, device=card),))
+    with pytest.raises(RuntimeError):
+        exe(torch.ones(4, device=card))
+    torch.cuda.synchronize()
+    assert calls == [False, True] and not aot._MEM
+    torch.rand(2, device=card)  # the default generator draws again
+
+
+@pytest.mark.cuda
+def test_program_of_new_shapes_captures_anew(card, monkeypatch):
+    """A second call of a program with other shapes captures its own
+    graphs; both stay cached, each replaying its own shapes."""
+    from subpixal_tpu_torch import aot
+
+    monkeypatch.setattr(aot, "_MEM", {})
+
+    def prog(x, *, k):
+        return (x * k).sum(0)
+
+    t = {}
+    a, b = torch.rand(4, 5, device=card), torch.rand(6, 3, device=card)
+    ea = aot.get_executable("prog", prog, (a,), statics={"k": 2.0},
+                            timings=t)
+    assert torch.equal(ea(a), prog(a, k=2.0))  # eager, then captured
+    t.clear()
+    eb = aot.get_executable("prog", prog, (b,), statics={"k": 2.0},
+                            timings=t)
+    assert torch.equal(eb(b), prog(b, k=2.0))
+    assert eb is not ea and "prog.compile" in t and len(aot._MEM) == 2
+    assert ea.steps and eb.steps
+    assert torch.equal(ea(a), prog(a, k=2.0))  # replays
+    assert torch.equal(eb(b), prog(b, k=2.0))
+    out = ea(a)
+    ea(torch.zeros_like(a))
+    assert torch.equal(out, prog(a, k=2.0))  # a copy, not the graph's

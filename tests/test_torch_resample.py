@@ -148,7 +148,7 @@ def test_stacked_execute_matches_jax(jax_stack, stacked):
     sci_s, wht_s, sci, wht = jax_stack["planes"]
     td = Drizzle(exposures_from_reference(jexps), device="cpu")
     td.execute()
-    assert {"pixmaps", "deposit_stack"} <= set(td.last_execute_breakdown)
+    assert {"wcs_params", "deposit_stack"} <= set(td.last_execute_breakdown)
     assert td.output_shape == tuple(jax_stack["drizzle"].output_shape)
     for e, exp in enumerate(td.exposures):
         ts, tw = td._per_exp[exp.name]
