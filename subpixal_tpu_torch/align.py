@@ -72,9 +72,10 @@ import torch.distributed as dist
 
 from ._precision import full_f32
 from .aot import Captured, capture_graph, get_executable, warm_up
-from .blot import (_affine_apply_grid, _cutout_pixmaps_stack, blot_measure,
-                   compute_pixmap, compute_pixmap_device_stack,
-                   device_pixmap_min_pixels)
+from . import tracing
+from .blot import (_affine_apply_grid, blot_measure, compute_pixmap,
+                   compute_cutout_pixmaps_device_stack,
+                   compute_pixmap_device_stack, device_pixmap_min_pixels)
 from .catalogs import ImageCatalog, ImageSourceCatalog
 from .catalogs_device import DeviceSourceCatalog
 from .catalogs_device import warm_compile as _cat_warm
@@ -447,13 +448,12 @@ def _stage_device_inputs(exp_data, centers, seg_f, cut_px, cut_py, src_ids,
         seg_cut, (~seg_ok)[None, :, None, None].to(torch.float32))
 
 
-def _stage_device_inputs_aot(*args, cut_shape, use_seg, timings=None):
+def _stage_device_inputs_aot(*args, cut_shape, use_seg):
     """:func:`_stage_device_inputs` through ``aot.get_executable`` (one
     captured program a shape on a card)."""
     exe = get_executable("device_stage", _stage_device_inputs, args,
                          statics=dict(cut_shape=tuple(cut_shape),
-                                      use_seg=bool(use_seg)),
-                         timings=timings)
+                                      use_seg=bool(use_seg)))
     return exe(*args)
 
 
@@ -847,7 +847,7 @@ def _all_ranks_hold(held: bool, mesh, device) -> bool:
     graphs' and hang or desynchronise the group."""
     flag = torch.full((1,), int(held), dtype=torch.int32, device=device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group())
-    return bool(flag.item())
+    return bool(tracing.to_host(flag).item())
 
 
 def _block_tensors(b: _Block | None) -> tuple[list, tuple]:
@@ -927,10 +927,11 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
     spent capturing, or copying the inputs into a cached graph: the JAX
     package's key for its loop's compile), ``loop_graphs`` (captures),
     ``loop_graph_hits`` (entries served by a cached graph) and
-    ``loop_replays``. Returns ``(Ms, ts, n_new, converged, hist,
-    iter_s)``: ``hist`` maps each field to its first ``n_new`` rows
-    (numpy), ``iter_s`` is the entry's wall time to its last read, less
-    ``loop_compile``'s share, over ``n_new``.
+    ``loop_replays``; its reads count under ``host_syncs`` in the current
+    record (:mod:`~subpixal_tpu_torch.tracing`). Returns ``(Ms, ts, n_new,
+    converged, hist, iter_s)``: ``hist`` maps each field to its first
+    ``n_new`` rows (numpy), ``iter_s`` is the entry's wall time to its
+    last read, less ``loop_compile``'s share, over ``n_new``.
     """
     if T < 1:  # as the reference's while_loop: no iteration at all
         return (Ms, ts, 0, False, {
@@ -953,7 +954,7 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
             o += n
         return out
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     tensors, rest = _block_tensors(blk)
     key = graph and (graph_key, dev, T, float(eps), tuple(fields.items()),
                      rest, tuple((t.shape, t.dtype) for t in tensors),
@@ -1001,7 +1002,7 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
     compile_s, captured = 0.0, 0
     h = None
     if hit is not None:
-        compile_s = time.time() - t0
+        compile_s = time.perf_counter() - t0
         run = hit.graph.replay
     elif graph:
         # the first step, eagerly on the side stream and waited for:
@@ -1012,13 +1013,13 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
             h = store.to("cpu", copy=True)
             reads += 1
         if h is None or not bool(h[1]):
-            t_c = time.time()
+            t_c = time.perf_counter()
             entry = _Graph(capture_graph(masked, dev), blk, Ms, ts, store,
                            () if mesh is None else _mesh_groups(mesh))
             _LOOP_CACHE[key] = entry
             while len(_LOOP_CACHE) > _LOOP_CACHE_MAX:
                 _LOOP_CACHE.pop(next(iter(_LOOP_CACHE)))
-            compile_s = time.time() - t_c
+            compile_s = time.perf_counter() - t_c
             captured = 1
             run = entry.graph.replay
     else:
@@ -1030,7 +1031,8 @@ def _fixed_point(step, blk: _Block | None, Ms: torch.Tensor, ts: torch.Tensor,
             h = store.to("cpu", copy=True)
             reads += 1
     n_new = int(h[0])
-    iter_s = (time.time() - t0 - compile_s) / max(n_new, 1)
+    iter_s = (time.perf_counter() - t0 - compile_s) / max(n_new, 1)
+    tracing.count(tracing.HOST_SYNCS, reads)
     out = {"loop_steps": steps, "loop_host_reads": reads}
     if graph:
         out.update(loop_compile=compile_s, loop_graphs=captured,
@@ -1132,14 +1134,34 @@ def align_images(
     and anywhere under ``'device'``; on the CPU ``'auto'`` runs the host
     finder on the gathered plane. ``mesh=`` with a spatial Drizzle raises
     ``ValueError``.
+
+    The result's ``setup_breakdown`` is the call's record
+    (:mod:`~subpixal_tpu_torch.tracing`): each stage's host seconds under
+    its span's name (``align.call``, ``align.setup`` and its stages,
+    ``align.geometry``, ``align.loop``, ``align.writeback``), on CUDA each
+    device span's ``<name>.device`` seconds, and the counters
+    (``host_syncs``, ``catalog.sources``, ``cutout.rows``,
+    ``cutout.cols``, the loop's ``loop_*``); ``setup_s`` is
+    ``align.setup``'s seconds.
     """
-    if config is None:
-        config = AlignConfig(
-            cc_type=cc_type, fitgeom=fitgeom, nclip=nclip, sigma=sigma,
-            use_weights=use_weights, combine_seg_mask=combine_seg_mask,
-            wcsupdate=wcsupdate, max_iterations=max_iterations,
-            eps_shift=eps_shift, history=history, **kw)
-    cfg = config
+    breakdown: dict = {}
+    with tracing.recording(breakdown, device_events=True), \
+            tracing.span("align.call", rest="align.unspanned"):
+        if config is None:
+            config = AlignConfig(
+                cc_type=cc_type, fitgeom=fitgeom, nclip=nclip, sigma=sigma,
+                use_weights=use_weights, combine_seg_mask=combine_seg_mask,
+                wcsupdate=wcsupdate, max_iterations=max_iterations,
+                eps_shift=eps_shift, history=history, **kw)
+        res = _align(catalogs, resample, exposures, config, verbose, mesh,
+                     device, breakdown)
+        tracing.read_device()  # after the write-back's host reads
+    return res
+
+
+def _align(catalogs, resample, exposures, cfg: AlignConfig, verbose: bool,
+           mesh, device, setup_breakdown: dict) -> AlignResult:
+    """:func:`align_images`' body, inside its record ``setup_breakdown``."""
     _check_config(cfg)
     dev = torch.device(device)
     if mesh is not None:
@@ -1174,42 +1196,33 @@ def align_images(
     if not exps:
         raise ValueError("no exposures to align")
 
-    setup_breakdown: dict[str, float] = {}
-
-    def _mark(name, t0):
-        setup_breakdown[name] = setup_breakdown.get(name, 0.0) + (
-            time.time() - t0)
-        return time.time()
-
-    t_setup = time.time()
-    t = t_setup
+    span = tracing.span
+    # the set-up, each stage a span of its own; setup_s is its seconds
+    setup = span("align.setup").open()
     # -- the AstroDrizzle stages and the initial reference image -------- #
     # (each stage's time is its own key; the JAX package counts them in
-    # 'resample_execute')
+    # 'resample_execute'; Drizzle.execute's stages come in as resample.*)
     if cfg.match_sky:
-        resample.match_sky(skymethod=cfg.skymethod)
-        t = _mark("match_sky", t)
+        with span("match_sky"):
+            resample.match_sky(skymethod=cfg.skymethod)
     if cfg.static_mask:
-        resample.apply_static_mask()
-        t = _mark("static_mask", t)
+        with span("static_mask"):
+            resample.apply_static_mask()
     if (catalogs is None and cfg.device_catalog in ("auto", "device")
             and dev.type == "cuda" and spatial is None):
         # the device finder's programs for the reference's shape, before
         # the first deposit, where the JAX package warms them
-        resample._ensure_output_grid()
-        _cat_warm(tuple(resample.output_shape), nsigma=cfg.catalog_nsigma,
-                  npixels=cfg.catalog_npixels, window=cfg.catalog_window,
-                  max_sources=cfg.catalog_max_sources, device=dev)
-        t = _mark("catalog_warm_compile", t)
-    resample.execute()
-    t = _mark("resample_execute", t)
+        with span("catalog_warm_compile"):
+            resample._ensure_output_grid()
+            _cat_warm(tuple(resample.output_shape),
+                      nsigma=cfg.catalog_nsigma, npixels=cfg.catalog_npixels,
+                      window=cfg.catalog_window,
+                      max_sources=cfg.catalog_max_sources, device=dev)
+    with span("resample_execute"):
+        resample.execute()
     if cfg.reject_cr and len(resample.exposures) >= 3:
-        resample.reject_cr()  # and the re-drizzle without the CRs
-        t = _mark("reject_cr", t)
-    for k, v in resample.last_execute_breakdown.items():
-        # a program's capture under its own name, the stages as resample.*
-        setup_breakdown[k if k.endswith(".compile")
-                        else f"resample.{k}"] = round(v, 3)
+        with span("reject_cr"):
+            resample.reject_cr()  # and the re-drizzle without the CRs
     ref_wcs = resample.output_wcs
     out_shape = resample.output_shape
     # the default catalog on the device finder ('auto': on CUDA, as the
@@ -1222,63 +1235,70 @@ def align_images(
         or (cfg.device_catalog == "auto" and dev.type == "cuda"))
     use_spatial_catalog = use_dev_catalog and spatial is not None
     use_dev_catalog = use_dev_catalog and spatial is None
-    if use_dev_catalog or use_spatial_catalog:
-        drz_sci = None
-        drz_sci_dev = drizzle_combine(resample._sci_acc, resample._wht_acc,
-                                      fill=resample.fillval)
-    else:
-        drz_sci = resample.output_sci
-    t = _mark("output_sci", t)
+    with span("output_sci", device=dev):
+        if use_dev_catalog or use_spatial_catalog:
+            drz_sci = None
+            drz_sci_dev = drizzle_combine(resample._sci_acc,
+                                          resample._wht_acc,
+                                          fill=resample.fillval)
+        else:
+            drz_sci = resample.output_sci
 
-    if use_spatial_catalog:
-        cat_list = [SpatialSourceCatalog(
-            spatial, drz_sci_dev, out_shape[0], nsigma=cfg.catalog_nsigma,
-            npixels=cfg.catalog_npixels, max_sources=cfg.catalog_max_sources,
-            window=cfg.catalog_window)]
-    elif catalogs is None:
-        cat_list = [DeviceSourceCatalog(
-            drz_sci_dev, nsigma=cfg.catalog_nsigma,
-            npixels=cfg.catalog_npixels, max_sources=cfg.catalog_max_sources,
-            window=cfg.catalog_window) if use_dev_catalog
-            else ImageSourceCatalog(drz_sci, nsigma=cfg.catalog_nsigma,
-                                    npixels=cfg.catalog_npixels)]
-    elif isinstance(catalogs, (list, tuple)):
-        cat_list = list(catalogs)
-    else:
-        cat_list = [catalogs]
-    if not cat_list:
-        raise ValueError("catalogs must not be an empty sequence")
-    cats = [c.catalog for c in cat_list]
-    # device-resident segmentation planes are preferred (no host copy)
-    seg_planes = [c.segmentation_device
-                  if getattr(c, "segmentation_device", None) is not None
-                  else c.segmentation for c in cat_list]
-    if mesh is not None and mesh.size > 1:
-        cats, seg_planes = _broadcast_catalogs(cats, seg_planes, mesh)
-    t = _mark("catalog", t)
+    with span("catalog"):  # ended by the table's read
+        if use_spatial_catalog:
+            cat_list = [SpatialSourceCatalog(
+                spatial, drz_sci_dev, out_shape[0],
+                nsigma=cfg.catalog_nsigma, npixels=cfg.catalog_npixels,
+                max_sources=cfg.catalog_max_sources,
+                window=cfg.catalog_window)]
+        elif catalogs is None:
+            cat_list = [DeviceSourceCatalog(
+                drz_sci_dev, nsigma=cfg.catalog_nsigma,
+                npixels=cfg.catalog_npixels,
+                max_sources=cfg.catalog_max_sources,
+                window=cfg.catalog_window) if use_dev_catalog
+                else ImageSourceCatalog(drz_sci, nsigma=cfg.catalog_nsigma,
+                                        npixels=cfg.catalog_npixels)]
+        elif isinstance(catalogs, (list, tuple)):
+            cat_list = list(catalogs)
+        else:
+            cat_list = [catalogs]
+        if not cat_list:
+            raise ValueError("catalogs must not be an empty sequence")
+        cats = [c.catalog for c in cat_list]
+        # device-resident segmentation planes are preferred (no host copy)
+        seg_planes = [c.segmentation_device
+                      if getattr(c, "segmentation_device", None) is not None
+                      else c.segmentation for c in cat_list]
+        if mesh is not None and mesh.size > 1:
+            cats, seg_planes = _broadcast_catalogs(cats, seg_planes, mesh)
     have_seg = any(s is not None for s in seg_planes)
     n_tot = sum(len(c) for c in cats)
+    tracing.count("catalog.sources", n_tot)
     if n_tot < cfg.min_sources:
         raise ValueError(
             f"only {n_tot} sources found (need >= {cfg.min_sources})")
 
-    prim = []
-    src_cat_l: list[int] = []
-    for ci, (cat, seg_i) in enumerate(zip(cats, seg_planes)):
-        # the device catalog's cutouts come from its table alone: setup
-        # reads only their shapes, ids, positions and fluxes
-        p_i = _prim_meta_from_catalog(cat, out_shape) \
-            if use_dev_catalog or use_spatial_catalog \
-            else create_primary_cutouts(
-                cat, seg_i if seg_i is not None
-                else np.zeros(out_shape, np.int32),
-                drz_sci, ref_wcs, combine_seg_mask=False)
-        prim.extend(p_i)
-        src_cat_l.extend([ci] * len(p_i))
+    with span("primary_cutouts"):
+        prim = []
+        src_cat_l: list[int] = []
+        for ci, (cat, seg_i) in enumerate(zip(cats, seg_planes)):
+            # the device catalog's cutouts come from its table alone:
+            # setup reads only their shapes, ids, positions and fluxes
+            p_i = _prim_meta_from_catalog(cat, out_shape) \
+                if use_dev_catalog or use_spatial_catalog \
+                else create_primary_cutouts(
+                    cat, seg_i if seg_i is not None
+                    else np.zeros(out_shape, np.int32),
+                    drz_sci, ref_wcs, combine_seg_mask=False)
+            prim.extend(p_i)
+            src_cat_l.extend([ci] * len(p_i))
     if len(prim) < cfg.min_sources:
         raise ValueError("too few usable primary cutouts")
-    t = _mark("primary_cutouts", t)
 
+    # the host geometry: the cutout shape and windows, the predicted
+    # positions, the f64 Jacobians or pixmaps, the corner bboxes
+    geometry = span("align.geometry").open()
     # -- static cutout shape, and the oversized-footprint bucket -------- #
     if cfg.cutout_shape is None:
         mh = max(c.data.shape[0] for c in prim)
@@ -1289,6 +1309,8 @@ def align_images(
     else:
         cut_shape = tuple(cfg.cutout_shape)
     h, w = cut_shape
+    tracing.count("cutout.rows", h)
+    tracing.count("cutout.cols", w)
     # sources whose footprint exceeds the static shape are re-measured
     # whole in a second static-shape bucket; only a footprint beyond the
     # bucket cap still crops (recorded in truncated_sources and warned)
@@ -1394,104 +1416,93 @@ def align_images(
         # weights in their own residence until they are stacked
         wht_scalars[e], wht_planes[e] = _weight_parts(exp, resample.wht_type)
         H, W = exp.data.shape
-        t = time.time()
-        if host_frames:  # else one device evaluation after this loop
-            dri_maps.append(compute_pixmap(exp.wcs, ref_wcs, (H, W)))
-        t = _mark("frame_pixmaps", t)
-        # predicted source positions in this exposure
-        sx, sy = exp.wcs.world_to_pixel(ra_cat, dec_cat)
-        inside = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < H)
-        src_valid[e] = inside & real_src
-        # cutout windows, fixed for all iterations: the same origin
-        # formula as extract_cutouts, floor(f32(c) + 0.5)
-        bx = np.floor(sx.astype(np.float32) + 0.5).astype(int) - w // 2
-        by = np.floor(sy.astype(np.float32) + 0.5).astype(int) - h // 2
-        blc_all[e] = np.stack([bx, by], 1)
-        corner_bboxes(e, bx, by, h, w)
-        cy, cx2 = h // 2, w // 2
-        if use_dev_cut:
-            # the grids are built on the device after this loop; the
-            # Jacobians (which f32 central differences would corrupt)
-            # come from host f64 evaluations at the cutout centers
-            ccx = (bx + cx2).astype(np.float64)
-            ccy = (by + cy).astype(np.float64)
-            rx, ry = ref_wcs.world_to_pixel(*exp.wcs.pixel_to_world(
-                np.concatenate([ccx + 1, ccx - 1, ccx, ccx]),
-                np.concatenate([ccy, ccy, ccy + 1, ccy - 1])))
-            rx = np.asarray(rx).reshape(4, N)
-            ry = np.asarray(ry).reshape(4, N)
-            d = [(rx[0] - rx[1]) / 2.0, (rx[2] - rx[3]) / 2.0,
-                 (ry[0] - ry[1]) / 2.0, (ry[2] - ry[3]) / 2.0]
-        else:
-            # per-cutout pixmaps into the ref frame + Jacobians (one
-            # batched (N, h, w) float64 WCS evaluation per exposure)
-            ra, dec = exp.wcs.pixel_to_world(xx[None] + bx[:, None, None],
-                                             yy[None] + by[:, None, None])
-            rx, ry = ref_wcs.world_to_pixel(ra, dec)
-            cut_px[e] = rx
-            cut_py[e] = ry
-            d = [(rx[:, cy, cx2 + 1] - rx[:, cy, cx2 - 1]) / 2.0,
-                 (rx[:, cy + 1, cx2] - rx[:, cy - 1, cx2]) / 2.0,
-                 (ry[:, cy, cx2 + 1] - ry[:, cy, cx2 - 1]) / 2.0,
-                 (ry[:, cy + 1, cx2] - ry[:, cy - 1, cx2]) / 2.0]
-        jac[e, :, 0, 0], jac[e, :, 0, 1], jac[e, :, 1, 0], jac[e, :, 1, 1] = d
-        t = _mark("cutout_pixmaps", t)
+        with span("frame_pixmaps"):
+            if host_frames:  # else one device evaluation after this loop
+                dri_maps.append(compute_pixmap(exp.wcs, ref_wcs, (H, W)))
+        with span("cutout_pixmaps"):
+            # predicted source positions in this exposure
+            sx, sy = exp.wcs.world_to_pixel(ra_cat, dec_cat)
+            inside = (sx >= 0) & (sx < W) & (sy >= 0) & (sy < H)
+            src_valid[e] = inside & real_src
+            # cutout windows, fixed for all iterations: the same origin
+            # formula as extract_cutouts, floor(f32(c) + 0.5)
+            bx = np.floor(sx.astype(np.float32) + 0.5).astype(int) - w // 2
+            by = np.floor(sy.astype(np.float32) + 0.5).astype(int) - h // 2
+            blc_all[e] = np.stack([bx, by], 1)
+            corner_bboxes(e, bx, by, h, w)
+            cy, cx2 = h // 2, w // 2
+            if use_dev_cut:
+                # the grids are built on the device after this loop; the
+                # Jacobians (which f32 central differences would corrupt)
+                # come from host f64 evaluations at the cutout centers
+                ccx = (bx + cx2).astype(np.float64)
+                ccy = (by + cy).astype(np.float64)
+                rx, ry = ref_wcs.world_to_pixel(*exp.wcs.pixel_to_world(
+                    np.concatenate([ccx + 1, ccx - 1, ccx, ccx]),
+                    np.concatenate([ccy, ccy, ccy + 1, ccy - 1])))
+                rx = np.asarray(rx).reshape(4, N)
+                ry = np.asarray(ry).reshape(4, N)
+                d = [(rx[0] - rx[1]) / 2.0, (rx[2] - rx[3]) / 2.0,
+                     (ry[0] - ry[1]) / 2.0, (ry[2] - ry[3]) / 2.0]
+            else:
+                # per-cutout pixmaps into the ref frame + Jacobians (one
+                # batched (N, h, w) float64 WCS evaluation per exposure)
+                ra, dec = exp.wcs.pixel_to_world(
+                    xx[None] + bx[:, None, None],
+                    yy[None] + by[:, None, None])
+                rx, ry = ref_wcs.world_to_pixel(ra, dec)
+                cut_px[e] = rx
+                cut_py[e] = ry
+                d = [(rx[:, cy, cx2 + 1] - rx[:, cy, cx2 - 1]) / 2.0,
+                     (rx[:, cy + 1, cx2] - rx[:, cy - 1, cx2]) / 2.0,
+                     (ry[:, cy, cx2 + 1] - ry[:, cy, cx2 - 1]) / 2.0,
+                     (ry[:, cy + 1, cx2] - ry[:, cy - 1, cx2]) / 2.0]
+            jac[e, :, 0, 0], jac[e, :, 0, 1], jac[e, :, 1, 0], \
+                jac[e, :, 1, 1] = d
         # initial predictions in the ref frame = catalog positions
         xy0[e] = xy_cat.astype(np.float32)
         centers[e] = np.stack([sx, sy], 1)
+    geometry.close()
 
     def to_dev(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
 
     def device_cutout_maps(blc, hw):
         """(E, n, hh, ww) cutout pixmaps on the device."""
-        return _cutout_pixmaps_stack([e.wcs for e in exps], ref_wcs, blc,
-                                     hw, dev, timings=setup_breakdown)
+        return compute_cutout_pixmaps_device_stack(
+            [e.wcs for e in exps], ref_wcs, blc, hw, dev)
 
-    exp_data_t = ds if reuse_data else _stack_planes(rate_planes, shape0,
-                                                      dev)
-    if all(wp is None for wp in wht_planes):
-        exp_wht_t = (torch.ones_like(exp_data_t)
-                     * to_dev(wht_scalars)[:, None, None])
-    else:
-        exp_wht_t = _stack_planes(
-            [float(wht_scalars[e]) if wp is None
-             else wp * float(wht_scalars[e])
-             for e, wp in enumerate(wht_planes)], shape0, dev)
-    if use_dev_cut:
-        cut_px_t, cut_py_t = device_cutout_maps(blc_all, cut_shape)
-        t = _mark("cutout_pixmaps", t)
-    else:
-        cut_px_t, cut_py_t = to_dev(cut_px), to_dev(cut_py)
-    if host_frames:
-        dri_px_t = to_dev(np.stack([p for p, _ in dri_maps]))
-        dri_py_t = to_dev(np.stack([q for _, q in dri_maps]))
-    else:
-        dri_px_t, dri_py_t = compute_pixmap_device_stack(
-            [e.wcs for e in exps], ref_wcs, exps[0].data.shape, device=dev)
-        t = _mark("frame_pixmaps", t)
-    # (C, H, W) per-catalog segmentation planes as float32 on the device
-    # (ids below 2**24 are exact); a device plane stays where it is. The
-    # band-local catalog's plane is this rank's band: its masks are
-    # sampled from the bands (nearest) by sample_spatial
-    seg_f_t = None if use_spatial_catalog else torch.stack([
-        torch.zeros(out_shape, dtype=torch.float32, device=dev) if sp is None
-        else torch.as_tensor(sp if isinstance(sp, torch.Tensor)
-                             else np.ascontiguousarray(sp)).to(
-                                 device=dev, dtype=torch.float32)
-        for sp in seg_planes])
-    src_ids_t = to_dev(src_ids)
-    src_cat_t = to_dev(src_cat, torch.int32)
-    seg_ok_t = to_dev(seg_ok, torch.bool)
-
+    with span("stack_inputs", device=dev):  # the frames' and weights'
+        exp_data_t = ds if reuse_data else _stack_planes(rate_planes,
+                                                          shape0, dev)
+        if all(wp is None for wp in wht_planes):
+            exp_wht_t = (torch.ones_like(exp_data_t)
+                         * to_dev(wht_scalars)[:, None, None])
+        else:
+            exp_wht_t = _stack_planes(
+                [float(wht_scalars[e]) if wp is None
+                 else wp * float(wht_scalars[e])
+                 for e, wp in enumerate(wht_planes)], shape0, dev)
+    with span("cutout_pixmaps", device=dev):
+        if use_dev_cut:
+            cut_px_t, cut_py_t = device_cutout_maps(blc_all, cut_shape)
+        else:
+            cut_px_t, cut_py_t = to_dev(cut_px), to_dev(cut_py)
+    with span("frame_pixmaps", device=dev):
+        if host_frames:
+            dri_px_t = to_dev(np.stack([p for p, _ in dri_maps]))
+            dri_py_t = to_dev(np.stack([q for _, q in dri_maps]))
+        else:
+            dri_px_t, dri_py_t = compute_pixmap_device_stack(
+                [e.wcs for e in exps], ref_wcs, exps[0].data.shape,
+                device=dev)
     def stage(centers_, cpx, cpy, ids_, cat_, ok_, hw):
         """Image cutouts, masks and segmentation masks of a cutout set:
         the program ``device_stage``; under a spatial mesh the masks are
         sampled from the bands by ``sample_spatial``, eagerly."""
         img_, msk_, seg_ = _stage_device_inputs_aot(
             exp_data_t, to_dev(centers_), seg_f_t, cpx, cpy, ids_, cat_, ok_,
-            cut_shape=hw, use_seg=have_seg and seg_f_t is not None,
-            timings=setup_breakdown)
+            cut_shape=hw, use_seg=have_seg and seg_f_t is not None)
         if seg_f_t is None and have_seg:
             E_, N_ = cpx.shape[:2]
             sseg, _ = sample_spatial(
@@ -1506,57 +1517,74 @@ def align_images(
                 (~ok_)[None, :, None, None].to(torch.float32))
         return img_, msk_, seg_
 
-    img_cut, img_msk, seg_cut = stage(centers, cut_px_t, cut_py_t,
-                                      src_ids_t, src_cat_t, seg_ok_t,
-                                      cut_shape)
-    t = _mark("device_stage", t)
+    with span("device_stage", device=dev):
+        # (C, H, W) per-catalog segmentation planes as float32 on the
+        # device (ids below 2**24 are exact); a device plane stays where
+        # it is. The band-local catalog's plane is this rank's band: its
+        # masks are sampled from the bands (nearest) by sample_spatial
+        seg_f_t = None if use_spatial_catalog else torch.stack([
+            torch.zeros(out_shape, dtype=torch.float32, device=dev)
+            if sp is None
+            else torch.as_tensor(sp if isinstance(sp, torch.Tensor)
+                                 else np.ascontiguousarray(sp)).to(
+                                     device=dev, dtype=torch.float32)
+            for sp in seg_planes])
+        src_ids_t = to_dev(src_ids)
+        src_cat_t = to_dev(src_cat, torch.int32)
+        seg_ok_t = to_dev(seg_ok, torch.bool)
+        img_cut, img_msk, seg_cut = stage(centers, cut_px_t, cut_py_t,
+                                          src_ids_t, src_cat_t, seg_ok_t,
+                                          cut_shape)
 
     big = None
     if big_hw is not None:
-        hB, wB = big_hw
-        bidx = np.asarray(big_src_i, np.int64)
-        NB = len(bidx)
-        NBp = max(-(-NB // 8) * 8, 8)
+        with span("big_bucket_stage", device=dev):
+            hB, wB = big_hw
+            bidx = np.asarray(big_src_i, np.int64)
+            NB = len(bidx)
+            NBp = max(-(-NB // 8) * 8, 8)
 
-        def padB(a, fill):
-            pad = [(0, 0), (0, NBp - NB)] + [(0, 0)] * (a.ndim - 2)
-            return np.pad(a, pad, constant_values=fill)
+            def padB(a, fill):
+                pad = [(0, 0), (0, NBp - NB)] + [(0, 0)] * (a.ndim - 2)
+                return np.pad(a, pad, constant_values=fill)
 
-        centersB = padB(centers[:, bidx], 0.0)
-        off = np.array([w // 2 - wB // 2, h // 2 - hB // 2], np.float32)
-        blcB = padB(blc_all[:, bidx] + off[None, None], 0.0)
-        src_idsB = np.concatenate([src_ids[bidx],
-                                   np.full(NBp - NB, -1, np.int64)])
-        src_catB = np.concatenate([src_cat[bidx],
-                                   np.zeros(NBp - NB, np.int64)])
-        seg_okB = np.concatenate([seg_ok[bidx], np.ones(NBp - NB, bool)])
-        # the bucket's cutout pixmaps: f32 on the device, as the JAX
-        # package builds them whatever cutout_pixmaps says (the Jacobians
-        # are shape-independent: the base set's serve)
-        cpxB_t, cpyB_t = device_cutout_maps(blcB, big_hw)
-        bimg, bmsk, bseg = stage(
-            centersB, cpxB_t, cpyB_t, to_dev(src_idsB),
-            to_dev(src_catB, torch.int32), to_dev(seg_okB, torch.bool),
-            big_hw)
-        # widen the bucket sources' ref-frame bboxes to the big windows
-        for e in range(E):
-            corner_bboxes(e, blcB[e, :NB, 0], blcB[e, :NB, 1], hB, wB,
-                          rows=bidx)
-        bidx_pad = np.concatenate([bidx, np.zeros(NBp - NB, np.int64)])
-        big = (cpxB_t, cpyB_t, bimg, bmsk, bseg,
-               to_dev(bidx_pad, torch.int64),
-               to_dev(np.arange(NBp) < NB, torch.bool))
-        t = _mark("big_bucket_stage", t)
+            centersB = padB(centers[:, bidx], 0.0)
+            off = np.array([w // 2 - wB // 2, h // 2 - hB // 2], np.float32)
+            blcB = padB(blc_all[:, bidx] + off[None, None], 0.0)
+            src_idsB = np.concatenate([src_ids[bidx],
+                                       np.full(NBp - NB, -1, np.int64)])
+            src_catB = np.concatenate([src_cat[bidx],
+                                       np.zeros(NBp - NB, np.int64)])
+            seg_okB = np.concatenate([seg_ok[bidx],
+                                      np.ones(NBp - NB, bool)])
+            # the bucket's cutout pixmaps: f32 on the device, as the JAX
+            # package builds them whatever cutout_pixmaps says (the
+            # Jacobians are shape-independent: the base set's serve)
+            cpxB_t, cpyB_t = device_cutout_maps(blcB, big_hw)
+            bimg, bmsk, bseg = stage(
+                centersB, cpxB_t, cpyB_t, to_dev(src_idsB),
+                to_dev(src_catB, torch.int32), to_dev(seg_okB, torch.bool),
+                big_hw)
+            # widen the bucket sources' ref-frame bboxes to the big windows
+            for e in range(E):
+                corner_bboxes(e, blcB[e, :NB, 0], blcB[e, :NB, 1], hB, wB,
+                              rows=bidx)
+            bidx_pad = np.concatenate([bidx, np.zeros(NBp - NB, np.int64)])
+            big = (cpxB_t, cpyB_t, bimg, bmsk, bseg,
+                   to_dev(bidx_pad, torch.int64),
+                   to_dev(np.arange(NBp) < NB, torch.bool))
 
     # per-exposure input/output pixel-scale ratios (deposit window sizes)
     dri_ratios = tuple(round(float(exp.wcs.pscale / ref_wcs.pscale), 6)
                        for exp in exps)
-    args = _LoopArgs(
-        exp_data=exp_data_t, exp_wht=exp_wht_t, dri_px=dri_px_t,
-        dri_py=dri_py_t, cut_px=cut_px_t, cut_py=cut_py_t, img_cut=img_cut,
-        img_msk=img_msk, seg_cut=seg_cut, jac=to_dev(jac), xy0=to_dev(xy0),
-        src_w=to_dev(np.repeat(flux_w[None], E, 0)),
-        src_valid=to_dev(src_valid, torch.bool), big=big)
+    with span("stage_args", device=dev):
+        args = _LoopArgs(
+            exp_data=exp_data_t, exp_wht=exp_wht_t, dri_px=dri_px_t,
+            dri_py=dri_py_t, cut_px=cut_px_t, cut_py=cut_py_t,
+            img_cut=img_cut, img_msk=img_msk, seg_cut=seg_cut,
+            jac=to_dev(jac), xy0=to_dev(xy0),
+            src_w=to_dev(np.repeat(flux_w[None], E, 0)),
+            src_valid=to_dev(src_valid, torch.bool), big=big)
 
     # -- sparse in-loop deposit: the re-drizzle only feeds the blot, so
     # input blocks whose deposits cannot reach any cutout's blot window
@@ -1589,36 +1617,39 @@ def align_images(
 
     if cfg.sparse_deposit is True or (cfg.sparse_deposit == "auto"
                                       and dev.type == "cuda"):
-        bb = _block_bboxes_wcs([e.wcs for e in exps], ref_wcs,
-                               exps[0].data.shape)
-        idx, valid_b = _live_block_indices(bb, cut_bb, out_shape,
-                                           bands=bands, **live_margins)
-        nb_total = int(bb[0].shape[1])
-        # fraction of the input blocks the live set keeps; the deposit
-        # walks only those (``sparse_live_frac``) when that pays
-        setup_breakdown["sparse_live_set"] = round(
-            idx.shape[-1] / nb_total, 4)
-        if idx.shape[-1] < 0.85 * nb_total:  # compaction must pay
-            dep = compact(idx, valid_b)
-            args = dataclasses.replace(args, exp_data=dep[0],
-                                       exp_wht=dep[1], dri_px=dep[2],
-                                       dri_py=dep[3])
-            # (under a mesh the compacted blocks are split by frame below)
-            # the live set is policed against the applied corrections
-            # (max_corr) and self-heals when they outgrow this margin
-            sparse = dict(bb=bb, nb_total=nb_total, margin=float(margin),
-                          heals=0, warned=False)
-            # fraction of the frame's input blocks the deposit still walks
-            setup_breakdown["sparse_live_frac"] = round(
+        with span("sparse_blocks", device=dev):
+            bb = _block_bboxes_wcs([e.wcs for e in exps], ref_wcs,
+                                   exps[0].data.shape)
+            idx, valid_b = _live_block_indices(bb, cut_bb, out_shape,
+                                               bands=bands, **live_margins)
+            nb_total = int(bb[0].shape[1])
+            # fraction of the input blocks the live set keeps; the
+            # deposit walks only those (``sparse_live_frac``) when that
+            # pays
+            setup_breakdown["sparse_live_set"] = round(
                 idx.shape[-1] / nb_total, 4)
-        t = _mark("sparse_blocks", t)
-    blk = _block(args, mesh, cfg, dri_ratios, spatial)
-    if mesh is not None:
-        t = _mark("mesh_stage", t)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)  # staging is charged to setup
-    t = _mark("stage_args", t)
-    setup_s = time.time() - t_setup
+            if idx.shape[-1] < 0.85 * nb_total:  # compaction must pay
+                dep = compact(idx, valid_b)
+                args = dataclasses.replace(args, exp_data=dep[0],
+                                           exp_wht=dep[1], dri_px=dep[2],
+                                           dri_py=dep[3])
+                # (under a mesh the compacted blocks are split by frame
+                # below) the live set is policed against the applied
+                # corrections (max_corr) and self-heals when they outgrow
+                # this margin
+                sparse = dict(bb=bb, nb_total=nb_total,
+                              margin=float(margin), heals=0, warned=False)
+                # fraction of the frame's input blocks the deposit still
+                # walks
+                setup_breakdown["sparse_live_frac"] = round(
+                    idx.shape[-1] / nb_total, 4)
+    with span("stage_args" if mesh is None else "mesh_stage", device=dev):
+        blk = _block(args, mesh, cfg, dri_ratios, spatial)
+    with span("stage_args"):
+        if dev.type == "cuda":
+            tracing.synchronize(dev)  # staging is charged to setup
+    setup.close()
+    setup_s = setup_breakdown["align.setup"]
 
     def sparse_heal_or_warn(max_corr: float, it: int) -> bool:
         """Police the sparse live set against the applied corrections.
@@ -1634,8 +1665,8 @@ def align_images(
             return False
         if sparse["heals"] < 2:
             sparse["heals"] += 1
-            Ms_h = Ms.cpu().numpy().astype(np.float64)
-            ts_h = ts.cpu().numpy().astype(np.float64)
+            Ms_h = tracing.to_host(Ms).numpy().astype(np.float64)
+            ts_h = tracing.to_host(ts).numpy().astype(np.float64)
             y0c, y1c, x0c, x1c = cut_bb
             cx4 = np.stack([x0c, x0c, x1c, x1c])  # (4, E, N) corners
             cy4 = np.stack([y0c, y1c, y0c, y1c])
@@ -1734,36 +1765,44 @@ def align_images(
     graph_key = (repr(cfg), out_shape, cut_shape, big_hw,
                  sparse is not None, torch.get_float32_matmul_precision()) \
         if dev.type == "cuda" else None
+    # each loop entry (a fixed point or a host loop, and its sparse heal)
+    # is a span of its own
     while dev_loop:
-        Ms, ts, n_new, converged, h_np, iter_s = _fixed_point(
-            step, blk, Ms, ts, fields, T, cfg.eps_shift, setup_breakdown,
-            graph_key, mesh=spatial if mesh is None else mesh)
-        for it in range(n_new):
-            record(make_recs(n_iter + it,
-                             {k: h_np[k][it] for k in fit_keys}, iter_s))
-        n_iter += n_new
-        if sparse is None or not sparse_heal_or_warn(
-                float(h_np["max_corr"].max()) if n_new else 0.0, n_iter - 1):
+        with span("align.loop", device=dev):
+            Ms, ts, n_new, converged, h_np, iter_s = _fixed_point(
+                step, blk, Ms, ts, fields, T, cfg.eps_shift, setup_breakdown,
+                graph_key, mesh=spatial if mesh is None else mesh)
+            for it in range(n_new):
+                record(make_recs(n_iter + it,
+                                 {k: h_np[k][it] for k in fit_keys}, iter_s))
+            n_iter += n_new
+            healed = sparse is not None and sparse_heal_or_warn(
+                float(h_np["max_corr"].max()) if n_new else 0.0, n_iter - 1)
+        if not healed:
             break
     while not dev_loop:
         healed = False
-        for _ in range(T):
-            t_it = time.time()
-            Ms, ts, info = step(blk, Ms, ts)
-            h = {k: info[k].cpu().numpy() for k in fit_keys}
-            recs = make_recs(n_iter, h, time.time() - t_it)  # incl. the read
-            n_iter += 1
-            record(recs)
-            if verbose:
-                for r in recs:
-                    print(r.to_json())
-            if sparse is not None and sparse_heal_or_warn(
-                    float(info["max_corr"]), n_iter - 1):
-                healed = True
-                break
-            if float(info["max_shift"]) < cfg.eps_shift:
-                converged = True
-                break
+        with span("align.loop", device=dev):
+            for _ in range(T):
+                t_it = time.perf_counter()
+                Ms, ts, info = step(blk, Ms, ts)
+                h = {k: tracing.to_host(info[k]).numpy() for k in fit_keys}
+                # the iteration's time, its reads included
+                recs = make_recs(n_iter, h, time.perf_counter() - t_it)
+                n_iter += 1
+                record(recs)
+                if verbose:
+                    for r in recs:
+                        print(r.to_json())
+                if sparse is not None and sparse_heal_or_warn(
+                        float(tracing.to_host(info["max_corr"])),
+                        n_iter - 1):
+                    healed = True
+                    break
+                if float(tracing.to_host(info["max_shift"])) \
+                        < cfg.eps_shift:
+                    converged = True
+                    break
         if not healed:
             break
         converged = False
@@ -1771,20 +1810,22 @@ def align_images(
     # ------------------------------------------------------------------ #
     # write the corrections back into the WCSs (host)
     # ------------------------------------------------------------------ #
-    Ms_np = Ms.cpu().numpy().astype(np.float64)
-    ts_np = ts.cpu().numpy().astype(np.float64)
-    out_exps = [Exposure(exp.data, apply_tangent_affine(
-                    exp.wcs, ref_wcs, Ms_np[e], ts_np[e]),
-                    weight=exp.weight, exptime=exp.exptime, name=exp.name,
-                    data_units=exp.data_units, err=exp.err, ivm=exp.ivm)
-                for e, exp in enumerate(exps)]
-    # a spatial align's product stays row-band-sharded: gathering it
-    # would put the whole mosaic on one device, what the mode avoids
-    final = Drizzle(out_exps, output_wcs=ref_wcs, output_shape=out_shape,
-                    pixfrac=cfg.pixfrac, kernel=cfg.kernel,
-                    use_pallas=cfg.use_pallas,
-                    wht_type=resample.wht_type, device=dev,
-                    spatial_mesh=spatial)
+    with span("align.writeback"):
+        Ms_np = tracing.to_host(Ms).numpy().astype(np.float64)
+        ts_np = tracing.to_host(ts).numpy().astype(np.float64)
+        out_exps = [Exposure(exp.data, apply_tangent_affine(
+                        exp.wcs, ref_wcs, Ms_np[e], ts_np[e]),
+                        weight=exp.weight, exptime=exp.exptime,
+                        name=exp.name, data_units=exp.data_units,
+                        err=exp.err, ivm=exp.ivm)
+                    for e, exp in enumerate(exps)]
+        # a spatial align's product stays row-band-sharded: gathering it
+        # would put the whole mosaic on one device, what the mode avoids
+        final = Drizzle(out_exps, output_wcs=ref_wcs, output_shape=out_shape,
+                        pixfrac=cfg.pixfrac, kernel=cfg.kernel,
+                        use_pallas=cfg.use_pallas,
+                        wht_type=resample.wht_type, device=dev,
+                        spatial_mesh=spatial)
     return AlignResult(
         exposures=out_exps, matrices=Ms_np, shifts=ts_np, history=hist,
         converged=converged, n_iterations=n_iter, drizzle=final,

@@ -45,7 +45,6 @@ import functools
 import hashlib
 import os
 import threading
-import time
 import warnings
 from typing import Any
 
@@ -53,6 +52,7 @@ import torch
 
 from . import _precision
 from .kernels import LAUNCHES
+from .tracing import recording, span, synchronize, to_host
 
 __all__ = ["code_fingerprint", "aot_dir", "aot_enabled", "get_executable"]
 
@@ -193,7 +193,7 @@ class Captured:
             n += 1
             if self.done is None:
                 return 0
-            if n == self.max_blocks or bool(self.done):
+            if n == self.max_blocks or bool(to_host(self.done)):
                 return n
 
 
@@ -257,7 +257,7 @@ def warm_up(fn, dev: torch.device):
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         out = fn()
-    torch.cuda.synchronize(dev)
+    synchronize(dev)
     leaves: list = []
     _flatten(out, leaves)
     for t in leaves:
@@ -297,7 +297,7 @@ def repeat_until(block, done: torch.Tensor, max_blocks: int | None = None):
         while True:
             block()
             n += 1
-            if n == max_blocks or bool(done):
+            if n == max_blocks or bool(to_host(done)):
                 return
     rec.split(block, done, max_blocks)
 
@@ -365,7 +365,10 @@ class _Program:
 
     def __call__(self, *args):
         if self.rebuild is None:
-            return self._first_call(args)
+            with recording(self.timings), span(f"{self.name}.compile"):
+                out = self._first_call(args)
+            self.timings = None
+            return out
         leaves: list = []
         _flatten(args, leaves)
         own = []
@@ -387,7 +390,6 @@ class _Program:
         """Run the program eagerly (this call's answer), then capture it;
         a capture that fails raises and leaves the program out of the
         cache."""
-        t0 = time.time()
         leaves: list = []
         rebuild = _flatten(args, leaves)
         dev = _device(leaves)
@@ -422,9 +424,6 @@ class _Program:
         self.nbytes = nbytes + torch.cuda.memory_reserved(dev) - reserved
         self.dev = dev
         _evict()
-        if self.timings is not None:
-            self.timings[f"{self.name}.compile"] = time.time() - t0
-        self.timings = None
         return out
 
 
@@ -445,14 +444,15 @@ def get_executable(name: str, fn, arg_shapes: tuple, *,
     On a CUDA device (with :func:`aot_enabled`), a miss returns a program
     whose first call runs ``fn`` eagerly on a side stream, returns that
     run's outputs, and captures ``fn`` as CUDA graphs on static input
-    buffers (split at each :func:`repeat_until`), recording
-    ``timings[f"{name}.compile"]`` (seconds of that call: the eager run
-    and the capture). A later call copies its arguments into the buffers
+    buffers (split at each :func:`repeat_until`), recording the span
+    ``{name}.compile`` (seconds of that call: the eager run and the
+    capture) in the current record (:mod:`~subpixal_tpu_torch.tracing`)
+    and in ``timings``. A later call copies its arguments into the buffers
     (a generator's state into the program's own, and back after),
     replays, and returns new tensors: copies of the outputs, never views
     that a later call overwrites. A capture that fails raises and caches
     nothing; there is no eager fallback. Elsewhere the executable is
-    ``fn`` with ``statics`` bound, and ``timings`` gets the miss's time.
+    ``fn`` with ``statics`` bound, and the miss's time is the span.
 
     Code that patches a function a program calls must clear ``_MEM``: a
     program captured before the patch replays the old function.
@@ -469,10 +469,8 @@ def get_executable(name: str, fn, arg_shapes: tuple, *,
     if dev is not None and dev.type == "cuda" and aot_enabled():
         exe = _Program(name, fn, statics, key, timings)
     else:
-        t0 = time.time()
-        exe = functools.partial(fn, **statics)
-        if timings is not None:
-            timings[f"{name}.compile"] = time.time() - t0
+        with recording(timings), span(f"{name}.compile"):
+            exe = functools.partial(fn, **statics)
     _MEM[key] = exe
     _evict()
     return exe

@@ -478,18 +478,11 @@ def compute_cutout_pixmaps_device_stack(wcs_list, to_wcs: TanWCS, blc,
     per exposure. The parameters are packed and copied to the device
     here; the evaluation is the program ``cutout_pixmaps_stack``
     (:func:`~subpixal_tpu_torch.aot.get_executable`)."""
-    return _cutout_pixmaps_stack(wcs_list, to_wcs, blc, shape, device)
-
-
-def _cutout_pixmaps_stack(wcs_list, to_wcs, blc, shape, device,
-                          timings=None):
-    """:func:`compute_cutout_pixmaps_device_stack`, the program's capture
-    time recorded in ``timings`` (``align_images``'s setup breakdown)."""
     params, modes = _stacked_wcs_params(wcs_list, to_wcs, device)
     blc_t = torch.as_tensor(np.asarray(blc, np.float32), device=device)
     statics = dict(shape=tuple(shape), modes=modes)
     exe = get_executable("cutout_pixmaps_stack", _cutout_pixmaps_stack_core,
-                         (params, blc_t), statics=statics, timings=timings)
+                         (params, blc_t), statics=statics)
     return exe(params, blc_t)
 
 

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from .aot import ensure_captured, get_executable, repeat_until
 from .catalogs import ImageCatalog, Table
+from .tracing import to_host
 
 __all__ = ["sigma_clipped_stats_device", "label_components_device",
            "find_sources_device", "DeviceSourceCatalog"]
@@ -667,14 +668,14 @@ def find_sources_device(image, threshold: float | None = None,
             cnt, thr = get_executable(
                 "cat_count", _count_candidates_auto, (img,),
                 statics=dict(nsigma=float(nsigma), npixels=int(npixels)))(img)
-            n_est, thr_v = torch.stack([cnt.to(torch.float64),
-                                        thr.to(torch.float64)]).tolist()
+            n_est, thr_v = to_host(torch.stack([
+                cnt.to(torch.float64), thr.to(torch.float64)])).tolist()
             threshold = thr_v        # the f32 value, exactly
         else:
             thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-            n_est = int(get_executable(
+            n_est = int(to_host(get_executable(
                 "cat_count_thr", _count_candidates, (img, thr),
-                statics=dict(npixels=int(npixels)))(img, thr))
+                statics=dict(npixels=int(npixels)))(img, thr)))
         b_eff = 128
         while b_eff < n_est + 8:
             b_eff *= 2
@@ -693,7 +694,7 @@ def find_sources_device(image, threshold: float | None = None,
         seg_rank, packed, _ = get_executable(
             "cat_peaks", _find_sources_peaks_core, (img, thr),
             statics=core)(img, thr)
-    arr = packed.cpu().numpy()     # the one device -> host table copy
+    arr = to_host(packed).numpy()  # the one device -> host table copy
     keep = arr[0] > 0
     n_cand = int(arr[10, 0])
     if n_cand > B:
@@ -742,9 +743,9 @@ def _find_sources_ccl(img, thr, npixels, connectivity, max_sources):
         img, thr, connectivity=connectivity, max_sources=max_sources)
     cols = ("area", "flux", "cx", "cy", "peak", "xmin", "xmax", "ymin",
             "ymax")
-    host = dict(zip(cols, torch.stack([table[k] for k in cols]).cpu()
+    host = dict(zip(cols, to_host(torch.stack([table[k] for k in cols]))
                     .numpy()))
-    n_comp, n_over = torch.stack([n_comp, n_overflow]).tolist()
+    n_comp, n_over = to_host(torch.stack([n_comp, n_overflow])).tolist()
     if n_over:
         warnings.warn(
             f"device source finder capped at {max_sources} sources "
@@ -815,7 +816,7 @@ class DeviceSourceCatalog(ImageCatalog):
             self.execute()
         if self.segmentation_device is None:
             return None
-        self._seg_host = self.segmentation_device.cpu().numpy()
+        self._seg_host = to_host(self.segmentation_device).numpy()
         return self._seg_host
 
     @segmentation.setter

@@ -36,6 +36,7 @@ from .catalogs_device import (_candidate_mask, _find_sources_peaks_core,
                               _peaks_dims)
 from .parallel.spatial import (_agree, _exchange, _psum, _rows_axis,
                                gather_rows, halo_exchange)
+from .tracing import to_host
 
 __all__ = ["sigma_clipped_stats_spatial", "find_sources_spatial",
            "SpatialSourceCatalog"]
@@ -162,7 +163,7 @@ def _tables(packed, mesh) -> np.ndarray:
     Over a 2-D mesh every rank takes the tables of its frames line's rank
     at frames index 0, so every rank holds the same catalog."""
     tables = _exchange(packed, mesh, _rows_axis(mesh))
-    return _agree(mesh, tables)[0].cpu().numpy()
+    return to_host(_agree(mesh, tables)[0]).numpy()
 
 
 def find_sources_spatial(mesh, band_plane: torch.Tensor, logical_rows: int,
@@ -194,8 +195,8 @@ def find_sources_spatial(mesh, band_plane: torch.Tensor, logical_rows: int,
         cnt, thr_d = _count_spatial_auto(
             band_plane, mesh=mesh, logical_rows=Ho, halo=halo,
             npixels=int(npixels), nsigma=float(nsigma))
-        n_est, threshold = torch.stack([cnt.to(torch.float64),
-                                        thr_d.to(torch.float64)]).tolist()
+        n_est, threshold = to_host(torch.stack([
+            cnt.to(torch.float64), thr_d.to(torch.float64)])).tolist()
         b_eff = 128
         while b_eff < int(n_est) + 8:
             b_eff *= 2

@@ -51,6 +51,7 @@ from ..kernels.blot import sample_cutouts
 from ..kernels.drizzle import drizzle_deposit_stack
 from ..ops.interp import (INTERP_OFFSETS, _axis_weights,
                           _bspline3_prefilter_axis)
+from ..tracing import to_host
 
 __all__ = [
     "band_rows",
@@ -176,7 +177,7 @@ def gather_rows(plane: torch.Tensor, logical_rows: int | None = None,
     mesh of more than one band this is a collective: EVERY rank of the
     mesh must call it, as in the JAX package.
     """
-    out = _gather_band(plane, mesh).cpu().numpy()
+    out = to_host(_gather_band(plane, mesh)).numpy()
     return out if logical_rows is None else out[:logical_rows]
 
 

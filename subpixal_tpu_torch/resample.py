@@ -31,7 +31,6 @@ exposure's attribute to a new one.
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Sequence
 
@@ -48,6 +47,7 @@ from .ops.drizzle import drizzle_combine
 from .ops.interp import sample_image
 from .parallel.spatial import (_agree, band_rows, drizzle_deposit_spatial,
                                gather_rows, sample_spatial)
+from .tracing import recording, span, to_host
 from .wcs import TanWCS
 
 __all__ = ["Resample", "Drizzle", "Exposure", "make_output_wcs",
@@ -68,7 +68,7 @@ def _plane(a):
 def _host(a):
     """A plane as host numpy (a tensor is copied to the host)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return to_host(a.detach()).numpy()
     return np.asarray(a)
 
 
@@ -160,7 +160,7 @@ def make_static_mask(exposures: "Sequence[Exposure]",
             _, med, std = sigma_clipped_stats_device(d)
             z = (d - med) / torch.clamp(std, min=1e-12)
             hi = z if hi is None else torch.maximum(hi, z)
-        return (hi < -float(nsigma)).cpu().numpy()
+        return to_host(hi < -float(nsigma)).numpy()
     stack = []
     for exp in exposures:
         _, med, std = sigma_clipped_stats(exp.data)
@@ -570,7 +570,7 @@ class Drizzle(Resample):
             w = w * np.float32(scale)
         return s, w
 
-    def _execute_stack(self, _mark, bd):
+    def _execute_stack(self):
         """The whole stack in ONE deposit launch that keeps each
         exposure's planes: the program ``deposit_stack``
         (:func:`_deposit_stack_core`, eagerly under a spatial mesh), its
@@ -579,8 +579,8 @@ class Drizzle(Resample):
         eligible: one exposure, shapes that differ, frames below the
         device-pixmap size, or pixmaps beyond the memory gate. (The JAX
         package also needs one SIP structure across the stack; the port
-        evaluates mixed stacks per group.) ``_mark`` records each stage's
-        time, and the program's capture lands in ``bd``."""
+        evaluates mixed stacks per group.) Each stage is a span of the
+        current record."""
         exps = self.exposures
         E = len(exps)
         if E < 2 or len({tuple(e.data.shape) for e in exps}) != 1:
@@ -590,38 +590,40 @@ class Drizzle(Resample):
             return None
         if E * shape[0] * shape[1] * 8 > self._STACK_EXEC_MAX_PIXMAP_BYTES:
             return None
-        scales, whts = zip(*(_weight_parts(e, self.wht_type) for e in exps))
-        data = _stack_planes([exposure_rate_data(e) for e in exps], shape,
-                             self.device)
-        # no per-pixel weight anywhere: the kernel takes unit weights
-        wht = (None if all(w is None for w in whts) else _stack_planes(
-            [1.0 if w is None else w for w in whts], shape, self.device))
-        _mark("h2d_stack")
-        params, modes = _stacked_wcs_params([e.wcs for e in exps],
-                                            self._owcs, self.device)
-        sc = torch.as_tensor(np.asarray(scales, np.float32),
-                             device=self.device)
-        _mark("wcs_params")
+        with span("resample.h2d_stack"):  # pageable copies: synchronous
+            scales, whts = zip(*(_weight_parts(e, self.wht_type)
+                                 for e in exps))
+            data = _stack_planes([exposure_rate_data(e) for e in exps],
+                                 shape, self.device)
+            # no per-pixel weight anywhere: the kernel takes unit weights
+            wht = (None if all(w is None for w in whts) else _stack_planes(
+                [1.0 if w is None else w for w in whts], shape,
+                self.device))
+        with span("resample.wcs_params", device=self.device):
+            params, modes = _stacked_wcs_params([e.wcs for e in exps],
+                                                self._owcs, self.device)
+            sc = torch.as_tensor(np.asarray(scales, np.float32),
+                                 device=self.device)
         ratios = tuple(round(float(e.wcs.pscale / self._owcs.pscale), 6)
                        for e in exps)
         statics = dict(shape=shape, modes=modes, oshape=tuple(self._oshape),
                        pixfrac=self.pixfrac, kernel=self.kernel,
                        ratios=ratios, use_pallas=self.use_pallas)
-        if self.spatial_mesh is None:
-            args = (params, data, wht, sc)
-            out = get_executable("deposit_stack", _deposit_stack_core, args,
-                                 statics=statics, timings=bd)(*args)
-        else:  # the planes of this rank's band, eagerly (_agree gathers)
-            px, py = _pixmap_stack_core(params, shape=shape, modes=modes)
-            s, w = drizzle_deposit_spatial(
-                self.spatial_mesh, data, wht, px, py, self._oshape,
-                pixfrac=self.pixfrac, pscale_ratio=ratios,
-                kernel=self.kernel, per_plane=True,
-                use_pallas=self.use_pallas)
-            s, w = _agree(self.spatial_mesh, s * sc[:, None, None],
-                          w * sc[:, None, None])
-            out = (s, w, s.sum(0), w.sum(0))
-        _mark("deposit_stack")
+        with span("resample.deposit_stack", device=self.device):
+            if self.spatial_mesh is None:
+                args = (params, data, wht, sc)
+                out = get_executable("deposit_stack", _deposit_stack_core,
+                                     args, statics=statics)(*args)
+            else:  # the planes of this rank's band, eagerly (_agree gathers)
+                px, py = _pixmap_stack_core(params, shape=shape, modes=modes)
+                s, w = drizzle_deposit_spatial(
+                    self.spatial_mesh, data, wht, px, py, self._oshape,
+                    pixfrac=self.pixfrac, pscale_ratio=ratios,
+                    kernel=self.kernel, per_plane=True,
+                    use_pallas=self.use_pallas)
+                s, w = _agree(self.spatial_mesh, s * sc[:, None, None],
+                              w * sc[:, None, None])
+                out = (s, w, s.sum(0), w.sum(0))
         # the rate-data stack stays for the align loop's staging, keyed on
         # the exposures' identities (any .data rebinding invalidates it)
         self._data_stack = data
@@ -632,39 +634,35 @@ class Drizzle(Resample):
     def execute(self) -> None:
         """(Re)drizzle the full stack; caches per-exposure deposits.
 
-        Per-stage wall times (each mark waits for the device) land in
-        ``self.last_execute_breakdown``; ``align_images`` folds them into
-        its ``setup_breakdown``.
+        Each stage's host seconds land in ``self.last_execute_breakdown``
+        (``output_grid``, ``h2d_stack``, ``wcs_params``, ``deposit_stack``
+        or ``deposits``, and a program's ``{name}.compile``), and as
+        ``resample.<stage>`` in the record of an ``align_images`` call
+        around it (:mod:`~subpixal_tpu_torch.tracing`), with the device
+        stages' ``.device`` seconds there. Nothing here waits for the
+        device.
         """
         bd = self.last_execute_breakdown = {}
-        t0 = time.time()
-
-        def _mark(name):
-            nonlocal t0
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            bd[name] = bd.get(name, 0.0) + (time.time() - t0)
-            t0 = time.time()
-
-        self._ensure_output_grid()
-        _mark("output_grid")
-        self._per_exp.clear()
-        self._data_stack = self._data_stack_key = None  # free stale memory
-        out = self._execute_stack(_mark, bd)
-        if out is not None:
-            sci_s, wht_s, sci, wht = out
-            for e, exp in enumerate(self.exposures):
-                self._per_exp[exp.name] = (sci_s[e], wht_s[e])
-            self._sci_acc, self._wht_acc = sci, wht
-            return
-        sci, wht = self._zeros(), self._zeros()
-        for exp in self.exposures:
-            s, w = _agree(self.spatial_mesh, *self._deposit(exp))
-            self._per_exp[exp.name] = (s, w)
-            sci = sci + s
-            wht = wht + w
-        self._sci_acc, self._wht_acc = sci, wht
-        _mark("deposits")
+        with recording(bd, strip="resample."):
+            with span("resample.output_grid"):
+                self._ensure_output_grid()
+            self._per_exp.clear()
+            self._data_stack = self._data_stack_key = None  # free stale memory
+            out = self._execute_stack()
+            if out is not None:
+                sci_s, wht_s, sci, wht = out
+                for e, exp in enumerate(self.exposures):
+                    self._per_exp[exp.name] = (sci_s[e], wht_s[e])
+                self._sci_acc, self._wht_acc = sci, wht
+                return
+            with span("resample.deposits", device=self.device):
+                sci, wht = self._zeros(), self._zeros()
+                for exp in self.exposures:
+                    s, w = _agree(self.spatial_mesh, *self._deposit(exp))
+                    self._per_exp[exp.name] = (s, w)
+                    sci = sci + s
+                    wht = wht + w
+                self._sci_acc, self._wht_acc = sci, wht
 
     def fast_add_image(self, exp: Exposure) -> None:
         """Add one exposure's contribution without redoing the stack."""
@@ -759,7 +757,7 @@ class Drizzle(Resample):
             if isinstance(exp.data, torch.Tensor):
                 from .catalogs_device import sigma_clipped_stats_device
 
-                med = float(sigma_clipped_stats_device(exp.data)[1])
+                med = float(to_host(sigma_clipped_stats_device(exp.data)[1]))
             else:
                 _, med, _ = sigma_clipped_stats(exp.data)
             scale = (float(exp.exptime)
@@ -863,10 +861,10 @@ class Drizzle(Resample):
                 cr_t, exp.weight = _reject_cr_one_device(
                     blot_t, ok_t, self._dev(exposure_rate_data(exp)), weight,
                     snr, scale)
-                masks.append(cr_t.cpu().numpy())
+                masks.append(to_host(cr_t).numpy())
                 continue
-            blot = blot_t.cpu().numpy()
-            ok = ok_t.cpu().numpy()
+            blot = to_host(blot_t).numpy()
+            ok = to_host(ok_t).numpy()
             # local gradient of the blotted model (driz_cr's derivative
             # image): max abs difference to the 4 neighbours
             p = np.pad(blot, 1, mode="edge")

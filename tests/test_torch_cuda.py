@@ -2116,3 +2116,78 @@ def test_program_of_new_shapes_captures_anew(card, monkeypatch):
     out = ea(a)
     ea(torch.zeros_like(a))
     assert torch.equal(out, prog(a, k=2.0))  # a copy, not the graph's
+
+
+# --------------------------------------------------------------------- #
+# the call's spans: device time from timing events, none in a capture
+# --------------------------------------------------------------------- #
+
+#: the device spans of a call with the defaults on the card (the stacked
+#: execute, the device finder, the device pixmaps, the sparse deposit)
+_DEVICE_SPANS = ("resample.wcs_params", "resample.deposit_stack",
+                 "output_sci", "stack_inputs", "cutout_pixmaps",
+                 "frame_pixmaps", "device_stage", "stage_args",
+                 "sparse_blocks", "align.loop")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["capture", "cached"])
+def test_device_spans_read_their_events_on_card(card, call):
+    """Every device span of a call reads a positive device time, and no
+    host span reads one; the host syncs hold the staging's synchronize,
+    the finder's table read, the loop's reads and the write-back's two."""
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    kw = dict(exposures=exps, device="cuda", max_iterations=6)
+    align_mod._LOOP_CACHE.clear()
+    res = align_images(**kw)
+    if call == "cached":
+        res = align_images(**kw)
+    bd = res.setup_breakdown
+    for name in _DEVICE_SPANS:
+        assert bd[name + ".device"] > 0, name
+    assert {k[:-len(".device")] for k in bd
+            if k.endswith(".device")} == set(_DEVICE_SPANS)
+    assert bd["host_syncs"] >= bd["loop_host_reads"] + 4
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+
+
+@pytest.mark.cuda
+def test_spans_in_a_capture_record_no_event_on_card(card, monkeypatch):
+    """A device span inside a stream capture records its host time and no
+    event, and the capture replays as before; a program whose first call
+    runs a device span records the eager run's events alone."""
+    from subpixal_tpu_torch import aot, tracing
+
+    monkeypatch.setattr(aot, "_MEM", {})
+    out = {}
+    x = torch.arange(4096, dtype=torch.float32, device=card)
+
+    def prog(a):
+        with tracing.span("inside", device=a.device) as s:
+            inside.append(s.ev is not None)
+            return a * 2.0
+
+    inside = []
+    g = torch.cuda.CUDAGraph()
+    with tracing.recording(out, device_events=True):
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            prog(x)  # warm
+        torch.cuda.current_stream(card).wait_stream(side)
+        with torch.cuda.graph(g):
+            y = prog(x)
+        g.replay()
+        exe = aot.get_executable("span_prog", prog, (x,))
+        z = exe(x)  # the first call: eager, then captured
+        z2 = exe(x + 1.0)  # a replay runs no span
+        with tracing.span("eager", device=card):
+            w = y + 1.0
+        torch.cuda.synchronize(card)
+        tracing.read_device()
+    assert inside == [True, False, True, False]
+    assert torch.equal(y, x * 2.0) and torch.equal(w, x * 2.0 + 1.0)
+    assert torch.equal(z, x * 2.0) and torch.equal(z2, (x + 1.0) * 2.0)
+    assert out["span_prog.compile"] > 0 and out["eager.device"] > 0
+    assert out["inside"] > 0 and out["inside.device"] > 0
