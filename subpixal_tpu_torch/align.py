@@ -1141,8 +1141,8 @@ def align_images(
     ``align.geometry``, ``align.loop``, ``align.writeback``), on CUDA each
     device span's ``<name>.device`` seconds, and the counters
     (``host_syncs``, ``catalog.sources``, ``cutout.rows``,
-    ``cutout.cols``, the loop's ``loop_*``); ``setup_s`` is
-    ``align.setup``'s seconds.
+    ``cutout.cols``, ``stack_inputs.reused``, the loop's ``loop_*``);
+    ``setup_s`` is ``align.setup``'s seconds.
     """
     breakdown: dict = {}
     with tracing.recording(breakdown, device_events=True), \
@@ -1383,9 +1383,10 @@ def _align(catalogs, resample, exposures, cfg: AlignConfig, verbose: bool,
     src_valid = np.zeros((E, N), bool)
     shape0 = tuple(exps[0].data.shape)
     # the rate-data stack the stacked execute just built for these same
-    # exposures (keyed on their identities) is reused on the device
+    # exposures (keyed on their identities) is reused on the device; the
+    # devices compare indexed, as torch.device("cuda") != "cuda:0"
     ds = resample._data_stack
-    reuse_data = (ds is not None and ds.device == dev
+    reuse_data = (ds is not None and _canon(ds.device) == _canon(dev)
                   and resample._data_stack_key == _exposure_stack_key(exps)
                   and tuple(ds.shape) == (E,) + shape0)
     rate_planes: list = []
@@ -1473,6 +1474,7 @@ def _align(catalogs, resample, exposures, cfg: AlignConfig, verbose: bool,
             [e.wcs for e in exps], ref_wcs, blc, hw, dev)
 
     with span("stack_inputs", device=dev):  # the frames' and weights'
+        tracing.count("stack_inputs.reused", int(reuse_data))
         exp_data_t = ds if reuse_data else _stack_planes(rate_planes,
                                                           shape0, dev)
         if all(wp is None for wp in wht_planes):

@@ -165,3 +165,21 @@ def test_cuda_device_without_index_is_the_current_device(monkeypatch):
     assert _canon("cuda") == torch.device("cuda", 1) == _canon("cuda:1")
     assert _canon(torch.device("cuda")) != _canon("cuda:0")
     assert _canon("cpu") == torch.device("cpu") == _canon(torch.device("cpu"))
+
+
+#: spellings of card 0 while it is the current device
+_CARD0 = ("cuda", torch.device("cuda"), "cuda:0", torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("a,b,same", [
+    *((a, b, True) for i, a in enumerate(_CARD0) for b in _CARD0[i + 1:]),
+    ("cuda:1", "cuda", False), ("cpu", "cpu", True)])
+def test_indexed_devices_compare_however_spelled(monkeypatch, a, b, same):
+    """align's test for reusing the Drizzle's device stack: every spelling
+    of the current card names one device, though PyTorch's own ``==``
+    tells ``torch.device("cuda")`` from ``torch.device("cuda", 0)``."""
+    from subpixal_tpu_torch.align import _canon
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert (_canon(a) == _canon(b)) is same
+    assert (_canon(b) == _canon(a)) is same

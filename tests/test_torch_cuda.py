@@ -723,6 +723,41 @@ def test_new_path_goes_through_all_kernels(card):
         assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", torch.device("cuda", 0)],
+                         ids=["cuda", "cuda:0", "device(cuda, 0)"])
+def test_align_copies_the_frames_once_however_the_card_is_named(
+        card, monkeypatch, device):
+    """However the card is named, align stages the rate stack that
+    Drizzle.execute just copied (``stack_inputs.reused`` 1): one stack of
+    the rate planes a call (no exposure carries a weight plane, so the
+    weights take none), and the first iteration equals the CPU run's."""
+    from subpixal_tpu_torch import resample as R
+
+    exps, planted = simulate_stack(n_exp=3, shape=(256, 256), n_stars=12,
+                                   seed=5)
+    stacks = []
+
+    def counted(real):
+        def wrapper(planes, shape, dev):
+            if all(np.ndim(p) == 2 for p in planes):
+                stacks.append(shape)
+            return real(planes, shape, dev)
+        return wrapper
+
+    monkeypatch.setattr(R, "_stack_planes", counted(R._stack_planes))
+    monkeypatch.setattr(align_mod, "_stack_planes",
+                        counted(align_mod._stack_planes))
+    res = align_images(exposures=exps, device=device, max_iterations=6)
+    assert res.setup_breakdown["stack_inputs.reused"] == 1
+    assert stacks == [(256, 256)]
+    assert pairwise_shift_errors(res.shifts, planted) < 0.005
+    cpu = align_images(exposures=exps, device="cpu", max_iterations=1,
+                       device_catalog="device")
+    for a, b in zip(res.history[0], cpu.history[0]):
+        assert np.hypot(*np.subtract(a.shift, b.shift)) < 1e-3
+
+
 _GRAPH_PATHS = {"defaults": dict(),
                 "new": dict(fitgeom="shift", usfac=8, fit_type="gaussian"),
                 "otf": dict(fitgeom="shift", usfac=8, fit_type="gaussian",

@@ -6,11 +6,13 @@ recorded without a current record, no device event off CUDA, the
 it), every documented key, the call's unspanned rest, and the host-sync
 count of paths whose reads are known."""
 
+import numpy as np
 import pytest
 import torch
 
 from subpixal_tpu_torch import align_images, tracing
-from subpixal_tpu_torch.resample import Drizzle
+from subpixal_tpu_torch import resample as R
+from subpixal_tpu_torch.resample import Drizzle, exposure_rate_data
 from subpixal_tpu_torch.testing import simulate_stack
 
 torch.set_num_threads(2)
@@ -25,7 +27,7 @@ DOCUMENTED = {
     "primary_cutouts", "align.geometry", "frame_pixmaps", "cutout_pixmaps",
     "stack_inputs", "device_stage", "stage_args",
     "align.loop", "align.writeback", "host_syncs", "catalog.sources",
-    "cutout.rows", "cutout.cols"}
+    "cutout.rows", "cutout.cols", "stack_inputs.reused"}
 #: the direct child spans of align.call
 CHILDREN = ("align.setup", "align.loop", "align.writeback")
 
@@ -164,3 +166,45 @@ def test_spans_are_profiler_ranges_only_under_the_profiler(scene,
     for name, rs in ranges.items():
         for a, b in rs:
             assert c0 <= a <= b <= c1, name
+
+
+@pytest.mark.parametrize("path,reused", [
+    ("stacked", 1), ("per_exposure", 0), ("match_sky", 1)])
+def test_stack_inputs_reuses_the_stack_execute_left(scene, monkeypatch,
+                                                    path, reused):
+    """``stack_inputs.reused`` reads 1 where the stacked execute ran (frames
+    of at least ``device_pixmap_min_pixels``), 0 on the per-exposure path
+    below it. Under ``match_sky`` the reused stack holds the
+    sky-subtracted rates, not the caller's frames; and the call leaves
+    the stack bitwise as ``Drizzle.execute`` left it."""
+    exps = scene
+    if path != "per_exposure":
+        monkeypatch.setattr(R, "device_pixmap_min_pixels", lambda device: 1)
+    if path == "match_sky":  # skies that differ, so the stage moves data
+        exps = [e.copy() for e in scene]
+        for i, e in enumerate(exps):
+            e.data = e.data + np.float32(0.25 * i)
+    left = {}
+    execute = Drizzle.execute
+
+    def spy(self):
+        execute(self)
+        ds = self._data_stack
+        left[id(self)] = None if ds is None else ds.clone()
+
+    monkeypatch.setattr(Drizzle, "execute", spy)
+    dz = Drizzle(exps, device="cpu")
+    res = _align(None, resample=dz, match_sky=path == "match_sky")
+    assert res.setup_breakdown["stack_inputs.reused"] == reused
+    ds = dz._data_stack
+    if not reused:
+        assert ds is None and left[id(dz)] is None
+        return
+    assert torch.equal(ds, left[id(dz)])
+    staged = torch.stack([torch.as_tensor(exposure_rate_data(e))
+                          for e in dz.exposures])
+    assert torch.equal(ds, staged)
+    if path == "match_sky":
+        given = torch.stack([torch.as_tensor(exposure_rate_data(e))
+                             for e in exps])
+        assert not torch.allclose(ds, given)
