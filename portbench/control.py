@@ -9,19 +9,19 @@ Programs (all by default, in this order, every seed each):
 
 * ``tf32``: the control. The configuration states float32 with TF32 off,
   and ``align_images`` pins it (``_precision.full_f32``: TF32 switched on
-  from outside leaves the program as it is). So the plain reference is
-  put in the program's place in the nearest precision below, float32
-  with TF32 on, where its fits' moments, its peak fits' normal equations
-  and its matrix DFT are matrix products whose inputs TF32 rounds to 10
-  mantissa bits. It aligns each visit to its own convergence (at most
+  from outside leaves the program as it is). So the cell's plain
+  reference is put in the program's place in the nearest precision
+  below, float32 with TF32 on, where its fits' moments, its peak fits'
+  normal equations and its matrix DFT are matrix products whose inputs
+  TF32 rounds to 10 mantissa bits. It aligns each visit to its own convergence (at most
   ``max_iterations``).
 * ``f32``: the same with TF32 off, which has to read as the program does.
-* ``unchanged_step``: the port, its loop step returning the state it was
-  given.
-* ``half_frames``: the port, its per-frame fits given no weight for the
-  second half of the frames.
-* ``answer_altered``: the port, its returned x shift of exposure 1 moved
-  by 0.02 px.
+* ``unchanged_step``: the cell's program, the port's loop step returning
+  the state it was given.
+* ``half_frames``: the cell's program, the port's per-frame fits given
+  no weight for the second half of the frames.
+* ``answer_altered``: the cell's program, its returned x shift of
+  exposure 1 moved by 0.02 px.
 
 Every run is one process's: one line of JSON a program and seed (the
 result line's ``correct``, ``attempted``, ``failed`` and ``checks``). A
@@ -42,7 +42,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from portbench import harness, reference  # noqa: E402
+from portbench import harness  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -82,15 +82,18 @@ def _as_result(ref, seconds: float):
         setup_s=seconds, setup_breakdown={})
 
 
-def reference_program(tf32: bool):
-    """The plain reference in float32 (TF32 on or off) as the program."""
+def reference_program(cell, tf32: bool):
+    """The cell's plain reference in float32 (TF32 on or off) as the
+    program."""
+    ref_module = cell.reference()
+
     def program(stack, settings, device, k):
-        wcs = [reference.Tan(*w) for w in harness.visit_wcs(stack)]
-        T = int(dict(reference.DEFAULTS, **settings)["max_iterations"])
+        wcs = [ref_module.Tan(*w) for w in harness.visit_wcs(stack)]
+        T = int(dict(ref_module.DEFAULTS, **settings)["max_iterations"])
         t = time.perf_counter()
         with _tf32(tf32):
-            ref = reference.align(stack.frames, wcs, settings, T, device,
-                                  dtype=torch.float32, stop=True)
+            ref = ref_module.align(stack.frames, wcs, settings, T, device,
+                                   dtype=torch.float32, stop=True)
         return _as_result(ref, time.perf_counter() - t)
     return program
 
@@ -139,33 +142,34 @@ def half_frames():
 
 
 def answer_altered(program):
-    """``program`` with its returned x shift of exposure 1 moved by
-    0.02 px."""
+    """``program`` (:func:`harness.as_program`'s forms) with its returned
+    x shift of exposure 1 moved by 0.02 px."""
+    call, prepare = harness.as_program(program)
+
     def altered(*a, **k):
-        res = program(*a, **k)
+        res = call(*a, **k)
         res.shifts[1, 0] += 0.02
         return res
-    return altered
+    return harness.Program(altered, prepare)
 
 
-#: name -> (program, the context it runs in, whether it warms up)
+#: name -> cell -> (program, the context it runs in, whether it warms up)
 PROGRAMS = {
-    "tf32": lambda: (reference_program(True), contextlib.nullcontext(),
-                     False),
-    "f32": lambda: (reference_program(False), contextlib.nullcontext(),
-                    False),
-    "unchanged_step": lambda: (harness.align_program, unchanged_step(),
-                               True),
-    "half_frames": lambda: (harness.align_program, half_frames(), True),
-    "answer_altered": lambda: (answer_altered(harness.align_program),
-                               contextlib.nullcontext(), True),
+    "tf32": lambda cell: (reference_program(cell, True),
+                          contextlib.nullcontext(), False),
+    "f32": lambda cell: (reference_program(cell, False),
+                         contextlib.nullcontext(), False),
+    "unchanged_step": lambda cell: (cell.program(), unchanged_step(), True),
+    "half_frames": lambda cell: (cell.program(), half_frames(), True),
+    "answer_altered": lambda cell: (answer_altered(cell.program()),
+                                    contextlib.nullcontext(), True),
 }
 
 
 def run(cell, name: str, seed: int, seconds: float, device: str):
     """One run of ``cell`` with program ``name`` in the program's place:
     (the run, its result line)."""
-    program, ctx, warm = PROGRAMS[name]()
+    program, ctx, warm = PROGRAMS[name](cell)
     with ctx:
         return harness.run_cell(
             cell, seed, seconds, False, device, program=program,

@@ -2,7 +2,7 @@
 
 A cell (``BENCHMARK.json``'s ``workloads`` entry) names a configuration
 (its file: the visit's sizes and assumptions), a traffic mix
-(``traffic/<name>.json``: the ``align_images`` settings and the client)
+(``traffic/<name>.json``: the program's settings and the client)
 and has a file of its own (``workloads/<cell>.json``: the pool of
 visits, the calls traced, the correctness limits). Every metric is read
 by ``metrics/<name>.py``'s ``read(run)``, found by the metric's name; a
@@ -20,27 +20,41 @@ running at the deadline ends. With tracing on, the first
 the window: the memory peak, then the plain reference of every visit the
 window aligned, and the comparison that decides ``correct``.
 
-What is aligned is a *program*: by default the port's ``align_images``;
-the control and the planted faults (``control.py``) put another in its
-place and go through the same window and comparison.
+A cell's files name the three things the harness runs, each a module
+found by its name: the configuration's ``"scene"`` (``<scene>.py``, by
+default ``scene``: ``make_pool(config, seed, count, device)``, the
+visits as :class:`scene.Stack`'s contract states them), the traffic's
+``"program"`` (``programs/<program>.py``, by default ``align_images``:
+``call(stack, settings, device, k)`` returns the port's ``AlignResult``;
+an optional ``prepare(stack, settings, device, k, workdir)`` runs before
+each call, warm-up included, outside the timed wall) and the
+configuration's ``"reference"`` (``<reference>.py``, by default
+``reference``: ``Tan``, ``output_grid``, ``DEFAULTS`` and ``align``,
+which decides ``correct``). ``workdir`` is one temporary directory a
+run, under the system's temp directory, removed when the run ends. The
+control and the planted faults (``control.py``) put another program in
+the cell's place and go through the same window and comparison.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
+import importlib
 import importlib.util
 import json
 import os
 import sys
+import tempfile
 import time
 import traceback
 
 import numpy as np
 import torch
 
-from . import check, reference, scene
+from . import check
 from .trace import WINDOW, summarize
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -65,6 +79,43 @@ class Cell:
     spec: dict           # workloads/<cell>.json
     end_to_end: list     # BENCHMARK.json metric entries this cell reports
     per_layer: list
+
+    def scene(self):
+        """The module that renders the cell's visits: the configuration's
+        ``"scene"``, else ``scene``."""
+        return lookup(__package__, self.config.get("scene", "scene"))
+
+    def reference(self):
+        """The plain reference that decides ``correct``: the
+        configuration's ``"reference"``, else ``reference``."""
+        return lookup(__package__,
+                      self.config.get("reference", "reference"))
+
+    def program(self):
+        """The program the window times: ``programs/<name>.py`` of the
+        traffic's ``"program"``, else ``align_images``."""
+        return lookup(__package__ + ".programs",
+                      self.traffic.get("program", "align_images"))
+
+
+def lookup(package: str, name: str):
+    """The module ``<package>.<name>`` that a cell's files name."""
+    if not name.isidentifier():
+        raise ValueError(f"{name!r} is not a module's name")
+    return importlib.import_module(f"{package}.{name}")
+
+
+#: what a run drives: ``call(stack, settings, device, k)`` and an optional
+#: ``prepare(stack, settings, device, k, workdir)`` (None: nothing)
+Program = collections.namedtuple("Program", "call prepare")
+
+
+def as_program(program) -> Program:
+    """A :class:`Program` of a module or namespace with ``call`` (and
+    ``prepare``), or of a bare ``call``."""
+    if callable(getattr(program, "call", None)):
+        return Program(program.call, getattr(program, "prepare", None))
+    return Program(program, None)
 
 
 def _reported(metrics, name):
@@ -127,34 +178,22 @@ def visit_wcs(stack) -> list:
             for e in range(len(stack.frames))]
 
 
-def align_program(stack, settings, device, k):
-    """The program under test: the port's ``align_images`` on the visit's
-    frames (host arrays, or the card's copies where the pool keeps them)
-    and their TAN WCS."""
-    from subpixal_tpu_torch.align import align_images
-    from subpixal_tpu_torch.resample import Exposure
-    from subpixal_tpu_torch.wcs import TanWCS
-
-    frames = stack.device_frames or stack.frames
-    exps = [Exposure(f, TanWCS(crpix=c, crval=v, cd=d), name=f"v{k}e{e}")
-            for e, (f, (c, v, d)) in enumerate(zip(frames,
-                                                   visit_wcs(stack)))]
-    return align_images(exposures=exps, device=device, **settings)
-
-
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
 
-def _call(program, stack, settings, device, k):
-    """One timed call of ``program``: (record, wall seconds)."""
+def _call(program: Program, stack, settings, device, k, workdir):
+    """One timed call of ``program``, its ``prepare`` first and outside
+    the wall: (record, wall seconds)."""
     from subpixal_tpu_torch import kernels
 
+    if program.prepare is not None:
+        program.prepare(stack, settings, device, k, workdir)
     before = dict(kernels.LAUNCHES)
     _sync(device)
     t = time.perf_counter()
-    res = program(stack, settings, device, k)
+    res = program.call(stack, settings, device, k)
     _sync(device)
     wall = time.perf_counter() - t
     hist = res.history
@@ -209,21 +248,24 @@ def forbidden_modules() -> list:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t0: float | None = None,
-             log=sys.stderr, program=align_program, warm_up: bool = True,
+             log=sys.stderr, program=None, warm_up: bool = True,
              min_calls: int = 0) -> tuple[Run, dict]:
     """One run of ``cell``: returns the run and its result line (a dict).
-    ``program`` is what is aligned (the port's ``align_images``); the
-    control's runs skip the warm-up and hold the window open for
-    ``min_calls`` calls at least."""
+    ``program`` is what is aligned (:func:`as_program`'s forms; None:
+    the cell's own); the control's runs skip the warm-up and hold the
+    window open for ``min_calls`` calls at least."""
     t0 = time.time() if t0 is None else t0
     settings = dict(cell.traffic.get("align", {}))
     run = Run(cell=cell, device=device)
+    program = as_program(cell.program() if program is None else program)
     import subpixal_tpu_torch  # noqa: F401  (the program under test)
 
-    pool = _set_up(run, seed, settings, t0, program, warm_up)
-    probe = [host_probe_ms()]
-    _window(run, pool, settings, seconds, trace, log, program, min_calls)
-    probe.append(host_probe_ms())
+    with tempfile.TemporaryDirectory(prefix="portbench-") as workdir:
+        pool = _set_up(run, seed, settings, t0, program, warm_up, workdir)
+        probe = [host_probe_ms()]
+        _window(run, pool, settings, seconds, trace, log, program,
+                min_calls, workdir)
+        probe.append(host_probe_ms())
     run.host_probe_ms = float(np.mean(probe))
     run.notes.append(f"host probe ms before / after the window "
                      f"{probe[0]:.3f} / {probe[1]:.3f}")
@@ -241,15 +283,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     return run, _line(run, gaps, failed, trace)
 
 
-def _set_up(run: Run, seed: int, settings: dict, t0: float, program,
-           warm_up: bool) -> list:
+def _set_up(run: Run, seed: int, settings: dict, t0: float,
+            program: Program, warm_up: bool, workdir: str) -> list:
     """The pool of visits (and one outside it) rendered on the run's
     device, the memory peak reset, then the warm-up calls. Returns the
     pool."""
     device = run.device
     t_import = time.time() - t0
     P = int(run.cell.spec["pool_stacks"])
-    pool = scene.make_pool(run.cell.config, seed, P + 1, device)
+    pool = run.cell.scene().make_pool(run.cell.config, seed, P + 1, device)
     if run.cell.traffic.get("frames", "host") == "device":
         for st in pool:
             st.device_frames = [torch.as_tensor(f, device=device)
@@ -263,10 +305,12 @@ def _set_up(run: Run, seed: int, settings: dict, t0: float, program,
     # the process's first call, a second, one on each visit in the
     # scenes' own order, so the program captures its shapes and takes
     # its memory alike in every run
-    _, run.first_call_s = _call(program, warm, settings, device, -1)
+    _, run.first_call_s = _call(program, warm, settings, device, -1,
+                                workdir)
     visits = sorted(enumerate(pool), key=lambda kv: kv[1].index)
     for k, st in ([(-1, warm)] + visits) if warm_up else []:
-        run.warm_walls.append(_call(program, st, settings, device, k)[1])
+        run.warm_walls.append(
+            _call(program, st, settings, device, k, workdir)[1])
     run.setup_s = time.time() - t0
     run.notes.append(
         f"setup: start to import {t_import:.3f} s, pool {t_pool:.3f} s, "
@@ -277,7 +321,8 @@ def _set_up(run: Run, seed: int, settings: dict, t0: float, program,
 
 
 def _window(run: Run, pool: list, settings: dict, seconds: float,
-            trace: bool, log, program, min_calls: int) -> None:
+            trace: bool, log, program: Program, min_calls: int,
+            workdir: str) -> None:
     """The pool's visits aligned back to back until the call running at
     the deadline ends; with ``trace``, the first ``trace_calls`` calls
     under ``torch.profiler`` in a :data:`WINDOW` span."""
@@ -300,7 +345,8 @@ def _window(run: Run, pool: list, settings: dict, seconds: float,
             k = i % len(pool)
             try:
                 run.calls.append(
-                    _call(program, pool[k], settings, device, k)[0])
+                    _call(program, pool[k], settings, device, k,
+                          workdir)[0])
             except Exception:  # a failed call counts, and the loop goes on
                 run.raised += 1
                 if run.raised == 1:
@@ -328,11 +374,12 @@ def _window(run: Run, pool: list, settings: dict, seconds: float,
             f"calls that captured a graph or program: {caps}")
 
 
-def visit_geometry(st):
-    """A visit's frames' WCS for the reference, and the five test points
-    of :func:`check.test_points` on the reference's grid."""
-    wcs = [reference.Tan(*w) for w in visit_wcs(st)]
-    grid, _ = reference.output_grid(wcs, [f.shape for f in st.frames])
+def visit_geometry(st, ref_module):
+    """A visit's frames' WCS for the reference module ``ref_module`` (a
+    cell's :meth:`Cell.reference`), and the five test points of
+    :func:`check.test_points` on its grid."""
+    wcs = [ref_module.Tan(*w) for w in visit_wcs(st)]
+    grid, _ = ref_module.output_grid(wcs, [f.shape for f in st.frames])
     return wcs, check.test_points(st.frames[0].shape, lambda x, y: tuple(
         v.numpy() for v in grid.world2pix(*wcs[0].pix2world(
             torch.as_tensor(x), torch.as_tensor(y)))))
@@ -347,11 +394,12 @@ def _compare(run: Run, pool: list, settings: dict) -> tuple[dict, int]:
     limits = run.cell.spec["limits"]
     bad_calls = set()
     worst = (-1.0, None, 0)  # state gap, visit, fits whose counts differ
+    ref_module = run.cell.reference()
     for k in sorted({c["k"] for c in run.calls}):
         st = pool[k]
         iters = max(c["n_iter"] for c in run.calls if c["k"] == k)
-        wcs, qr = visit_geometry(st)
-        ref = reference.align(st.frames, wcs, settings, iters, run.device)
+        wcs, qr = visit_geometry(st, ref_module)
+        ref = ref_module.align(st.frames, wcs, settings, iters, run.device)
         run.refs[k] = ref
         for i, c in enumerate(run.calls):
             if c["k"] != k:

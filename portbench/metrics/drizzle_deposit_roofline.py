@@ -13,9 +13,8 @@ def work(run, call):
     """One per-plane deposit of the whole frames at set-up (science
     planes only), then each of the loop's deposits: the live share of
     the input pixels, with weights, into one plane."""
-    cfg = run.cell.config
-    E = int(cfg["n_exposures"])
-    H, W = cfg["shape"]
+    E = call["G_M"].shape[1]    # the frames the call aligned
+    H, W = run.cell.config["shape"]
     n = call["launches"]["drizzle_deposit"]
     out = call["out_shape"]
     live = call["breakdown"].get("sparse_live_frac", 1.0)

@@ -17,7 +17,7 @@ def work(run, call):
         return []
     n_src, cut = got
     settings = run.cell.traffic.get("align", {})
-    E = int(run.cell.config["n_exposures"])
+    E = call["G_M"].shape[1]    # the frames the call aligned
     rows = n_src if settings.get("wcsupdate", "batch") == "otf" \
         else E * n_src
     return [b3_work(rows, cut, int(settings.get("usfac", 1)),

@@ -12,7 +12,13 @@ recording the state after each.
 What it covers is the path the benchmark's cells run: TAN frames, the
 square kernel, ``poly5`` blots, NCC, ``peak_search_box='fitbox'``, the
 quadratic and Gaussian peak fits, ``usfac`` 1 (surface) and > 1 (matrix
-DFT), ``fitgeom`` 'shift' and 'general', ``wcsupdate`` 'batch' and 'otf'.
+DFT), ``fitgeom`` 'shift' and 'general', ``wcsupdate`` 'batch' and 'otf';
+it raises on any other setting that would change the arithmetic
+(``match_sky``, ``static_mask``, ``reject_cr`` and the like), and on a
+primary footprint larger than the cutout (it has no oversized bucket).
+A configuration names its reference by its key ``"reference"`` (this
+module without it); another reference is a module under ``portbench/``
+with ``Tan``, ``output_grid``, ``DEFAULTS`` and ``align``.
 Its catalog is the connected components above the threshold, without
 deblending (the program's finder deblends blends; on these scenes that
 changes a few sources at most).
@@ -43,6 +49,26 @@ DEFAULTS = dict(cc_type="NCC", fitgeom="general", nclip=3, sigma=3.0,
                 peak_search_box="fitbox", fit_type="quadratic",
                 interp="poly5", max_cut_size=128, pixfrac=1.0,
                 kernel="square", catalog_nsigma=3.0, catalog_npixels=5)
+#: settings that choose where or how the program computes, not what: the
+#: reference takes them and reads none
+PLACEMENT = frozenset({"history", "verbose", "use_pallas", "sparse_deposit",
+                       "cutout_pixmaps", "device_loop", "device_catalog",
+                       "min_sources"})
+#: the program's stages this reference does not implement, each taken
+#: only where it is off
+NOT_IMPLEMENTED = dict(match_sky=False, static_mask=False, reject_cr=False)
+
+
+def check_settings(settings: dict) -> None:
+    """Raise ``ValueError`` on a setting that this reference does not
+    implement and that would change what the program computes: a stage
+    of :data:`NOT_IMPLEMENTED` switched on, or a key neither in
+    :data:`DEFAULTS` nor in :data:`PLACEMENT`."""
+    for key, value in settings.items():
+        if key in DEFAULTS or key in PLACEMENT or (
+                key in NOT_IMPLEMENTED and value == NOT_IMPLEMENTED[key]):
+            continue
+        raise ValueError(f"the reference does not implement {key}={value!r}")
 
 
 class Tan:
@@ -625,7 +651,10 @@ def align(frames, wcs, settings: dict, iterations: int, device,
     """The reference alignment of ``frames`` (E host (H, W) arrays, each
     with its ``Tan`` in ``wcs``) under ``settings`` (``DEFAULTS``
     overridden), for ``iterations`` iterations from the identity, or with
-    ``stop`` until the first whose motion falls below ``eps_shift``."""
+    ``stop`` until the first whose motion falls below ``eps_shift``.
+    Raises ``ValueError`` on a setting it does not implement
+    (:func:`check_settings`)."""
+    check_settings(settings)
     cfg = dict(DEFAULTS, **settings)
     if (cfg["cc_type"], cfg["interp"], cfg["kernel"]) != (
             "NCC", "poly5", "square") or cfg["peak_search_box"] != "fitbox":

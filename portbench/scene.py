@@ -18,6 +18,26 @@ key, every exposure points alike, as in ``simulate_stack``.
 
 This copy is part of the benchmark's yardstick: it changes only with the
 benchmark, never with the program.
+
+A configuration names the module that renders its visits by its key
+``"scene"`` (this one without it): a module under ``portbench/`` whose
+``make_pool(config, seed, count, device)`` returns ``count`` visits, each
+a :class:`Stack` that keeps this contract:
+
+* ``frames``: one host float32 (H, W) array for each frame the program
+  aligns; each chip of an exposure is a frame.
+* ``planted``: (E, 2), one row a frame.
+* ``crpix``: (E, 2), each frame's 0-based reference pixel; ``crval``
+  (RA, Dec) and ``cd`` (2, 2), in degrees, shared by the frames.
+* ``index``: the visit's place among a run's scenes (the last of a pool
+  is the visit outside it); ``device_frames``: the card's copies of the
+  frames, which the harness sets where the traffic hands them over
+  there.
+* ``files`` (optional): one ``(file name, EXTVER)`` a frame, the frames
+  listed in file order, then chip order; without it, each frame is its
+  own single-SCI file.
+* ``err``, ``dq`` (optional): one ERR (float32) and one DQ (int16) plane
+  a frame, which a file carries beside its SCI.
 """
 
 from __future__ import annotations
@@ -33,9 +53,10 @@ CRVAL = (150.0, 2.0)
 
 @dataclasses.dataclass
 class Stack:
-    """One visit: host frames (E arrays of (H, W) float32), the planted
-    per-exposure pointing errors (E, 2) in pixels, the stars (S, 2) and
-    each frame's TAN parameters (0-based crpix, crval, cd in degrees)."""
+    """One visit, as the contract above states it: host frames (E arrays
+    of (H, W) float32), the planted per-frame pointing errors (E, 2) in
+    pixels, the stars (S, 2) and each frame's TAN parameters (0-based
+    crpix, crval, cd in degrees)."""
 
     frames: list
     planted: np.ndarray
@@ -47,6 +68,9 @@ class Stack:
     index: int = 0       # the scene's place among a run's scenes
     device_frames: list | None = None   # on the card, for traffic that
                                         # hands the frames over there
+    files: list | None = None   # (file name, EXTVER) a frame
+    err: list | None = None     # an ERR plane a frame
+    dq: list | None = None      # a DQ plane a frame
 
 
 def stack_seed(seed: int, index: int) -> int:

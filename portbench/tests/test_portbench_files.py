@@ -138,8 +138,51 @@ def test_no_module_imports_jax_or_the_jax_package(path):
                             and a.value.endswith(OLD_BENCH)), path
 
 
-@pytest.mark.parametrize("name", ["reference", "check", "scene", "roofline",
-                                  "trace"])
+#: (role, module) of each scene and reference a configuration names
+NAMED = sorted({(k, json.load(open(os.path.join(ROOT, c["file"]))).get(k, k))
+                for c in BENCH["configs"] for k in ("scene", "reference")})
+#: what each role's module defines
+ROLE = {"scene": ("make_pool",),
+        "reference": ("Tan", "output_grid", "DEFAULTS", "align")}
+#: every traffic file's name
+TRAFFIC = sorted(f[:-len(".json")] for f in os.listdir(
+    os.path.join(ROOT, "portbench", "traffic")) if f.endswith(".json"))
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_cells_resolve_to_their_scene_program_and_reference(cell):
+    from portbench import reference, scene
+    from portbench.programs import align_images
+    c = harness.load_cell(cell, BENCH)
+    assert c.scene() is scene
+    assert c.program() is align_images
+    assert c.reference() is reference
+
+
+@pytest.mark.parametrize("role,name", NAMED)
+def test_named_scenes_and_references_exist(role, name):
+    mod = harness.lookup("portbench", name)
+    for attr in ROLE[role]:
+        assert hasattr(mod, attr), (name, attr)
+
+
+@pytest.mark.parametrize("traffic", TRAFFIC)
+def test_every_traffic_files_program_exists(traffic):
+    t = json.load(open(os.path.join(ROOT, "portbench", "traffic",
+                                    traffic + ".json")))
+    mod = harness.lookup("portbench.programs",
+                         t.get("program", "align_images"))
+    assert callable(mod.call)
+
+
+def test_a_name_that_is_no_module_is_refused():
+    with pytest.raises(ValueError):
+        harness.lookup("portbench", "../scene")
+
+
+@pytest.mark.parametrize("name", sorted({"reference", "check", "scene",
+                                         "roofline", "trace", "fitsfile"}
+                                        | {n for _, n in NAMED}))
 def test_the_yardstick_imports_nothing_of_the_program(name):
     tops = {m.split(".")[0] for m in _imports(
         os.path.join(ROOT, "portbench", name + ".py"))}

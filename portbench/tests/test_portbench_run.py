@@ -64,10 +64,11 @@ def test_frames_handed_over_on_the_device():
     cell = tiny_cell("batch")
     cell.traffic = dict(cell.traffic, frames="device")
     seen = []
+    align_images = cell.program().call
 
     def program(stack, settings, device, k):
         seen.append(stack.device_frames is not None)
-        return harness.align_program(stack, settings, device, k)
+        return align_images(stack, settings, device, k)
 
     _, line = harness.run_cell(cell, SEED, 0.2, False, "cpu",
                                program=program)
